@@ -11,23 +11,40 @@ Inputs are f32 on the card; the reference is the plain version in f64 on the
 same inputs. Errors are max|kernel − ref| / max|ref| per output array, held
 to the tolerances ``chip_smoke.py`` states and explains: 1e-5 for sums and
 the cost, 1e-4 for the linearization without a robust loss and 5e-3 with
-one. ``test_torch_kernels.py`` holds the plain versions against the
-reference's Pallas kernels on the CPU.
+one. The band builds (K5–K7) invert ill-conditioned 3×3 point blocks at
+small λ, where any f32 result is far from f64 and two orders of evaluation
+differ by a few times in their largest error: row by row of the output (a
+block entry over all cameras or segments, on its own scale) the worst is held
+to 1e-5 or ten times the worst row of the plain version run in f32, whichever
+is larger.
+``test_torch_kernels.py``, ``test_torch_bandblocks.py`` and
+``test_torch_pcg_band.py`` hold the plain versions against the reference's
+Pallas kernels on the CPU.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tpu_ba_torch.core import LMConfig
+from tpu_ba_torch.core import LMConfig, make_problem
 from tpu_ba_torch.io.synthetic import make_synthetic_problem
+from tpu_ba_torch.jacobians.analytic import jacobian_blocks_bal
 from tpu_ba_torch.kernels import _lib
 from tpu_ba_torch.kernels.linearize import (fused_cost, fused_cost_plain,
                                             fused_linearize_assemble,
                                             fused_linearize_assemble_plain)
+from tpu_ba_torch.kernels.pairblocks import fused_pair_blocks, fused_pair_blocks_plain
+from tpu_ba_torch.kernels.pcg_band import fold_damp_prologue, pcg_banded, pcg_banded_plain
 from tpu_ba_torch.kernels.segsum import sorted_segment_sum_t, sorted_segment_sum_t_plain
+from tpu_ba_torch.kernels.slotband import slot_band_blocks, slot_band_blocks_plain
+from tpu_ba_torch.kernels.trackband import fused_track_blocks, fused_track_blocks_plain
+from tpu_ba_torch.solver import pairs as pairs_mod
+from tpu_ba_torch.solver import pcg as pcg_mod
+from tpu_ba_torch.solver import slots as slots_mod
 from tpu_ba_torch.solver.lm import solve
+from tpu_ba_torch.solver.normal import assemble, damp_blocks
 from tpu_ba_torch.solver.plans import build_plans
+from tpu_ba_torch.solver.schur import inv3x3_rows, schur_rhs
 
 pytestmark = pytest.mark.cuda
 
@@ -139,15 +156,372 @@ def test_solve_on_the_card_matches_the_plain_versions(dev):
     two tiers' f32 final costs differ by ~3e-5 relative, from each other and
     from f64, so 5e-4; at λ₀ = 10 the counts do not hinge on rounding."""
     cfg = LMConfig(max_iters=6, init_lambda=10.0, linear_solver="schur_pcg_pallas")
-    p_cpu, _ = make_synthetic_problem(10, 100, obs_per_point=4, seed=11)
+    p_cpu, _ = make_synthetic_problem(10, 100, obs_per_point=4, seed=11, device="cpu")
     p_dev, _ = make_synthetic_problem(10, 100, obs_per_point=4, seed=11, device=dev)
     _lib.reset_launches()
     res = solve(p_dev, cfg)
     launched = dict(_lib.launches)
     ref = solve(p_cpu, cfg)
-    assert all(n > 0 for n in launched.values()), launched
+    assert all(launched[k] > 0 for k in ("segsum", "linearize", "cost")), launched
     assert _lib.launches == launched        # the CPU solve launched nothing
     assert int(res.iterations) == int(ref.iterations) == 6
     assert int(res.accepted) == int(ref.accepted)
     np.testing.assert_allclose(res.cost.item(), ref.cost.item(), rtol=5e-4)
     assert res.cost.item() < res.initial_cost.item()
+
+
+# ---- the sparse-Schur tier: K7, K5, K6 (band builds) and K4 (banded PCG) ----
+
+FLOOR, CEIL = 1e-6, 1e32
+BAND_KW = dict(dc=9, diag_floor=FLOOR, diag_ceil=CEIL)
+
+
+def _incidence(case):
+    """(n_cameras, points' camera lists) of a small problem that engages the
+    named structure."""
+    rng = np.random.default_rng(7)
+    if case == "ring":            # 23 cameras: consecutive tracks, wrapped points as pairs
+        C = 23
+        return C, [np.sort((c + np.arange(4)) % C) for c in range(C) for _ in range(5)]
+    if case == "line":            # no wrap: tracks of length 2–4, one ends at the last camera
+        C = 19
+        rows = [np.arange(c, min(c + d, C)) for c in range(C - 1) for d in (2, 3, 4)]
+        return C, rows + [np.arange(C - 4, C)]
+    if case == "gappy":           # 4 of a 6-wide window: gaps (slots), some consecutive
+        C = 37
+        rows = []
+        for c in range(C):
+            for k in range(6):
+                take = np.sort(rng.choice(6, 4, replace=False)) if k % 2 else np.arange(4)
+                rows.append(np.sort((c + np.arange(6))[take] % C))
+        return C, rows
+    if case == "wide":            # 200 cameras: the PCG grid has 13 blocks
+        C = 200
+        return C, [np.sort((c + np.sort(rng.choice(5, 3, replace=False))) % C)
+                   for c in range(C) for _ in range(3)]
+    if case == "diagonal":        # every point seen once: a band of the one offset 0
+        C = 11
+        return C, [np.array([c]) for c in range(C) for _ in range(4)]
+    if case == "long":            # 30,011 cameras: more camera groups than resident PCG blocks
+        C = 30011
+        return C, [np.arange(c, min(c + 3, C)) for c in range(C)]
+    if case == "leftover":        # 36 offsets: the band is capped at 32, the rest is off-band
+        C = 40
+        return C, [np.array([c, c + k]) for c in range(C) for k in range(1, 36) if c + k < C]
+    raise KeyError(case)
+
+
+def _band_system(dev, case, **plan_kw):
+    """A BlockSystem on the card (f32) and its pair plan with kernel plans."""
+    C, rows = _incidence(case)
+    P = len(rows)
+    # the generator walks its cameras one by one: a large case repeats a small scene
+    base, _ = make_synthetic_problem(min(C, 200), min(P, 1000), obs_per_point=1, pixel_noise=0.5,
+                                     seed=3, device="cpu")
+    cams = base.cameras.numpy()[np.arange(C) % base.n_cameras]
+    pts = base.points.numpy()[np.arange(P) % base.n_points]
+    ci = np.concatenate(rows)
+    pi = np.repeat(np.arange(P), [len(r) for r in rows])
+    obs = np.random.default_rng(5).normal(0.0, 50.0, (ci.size, 2))
+    p = make_problem(cams, pts, obs, ci, pi, pad_multiple=8, device=dev)
+    r, Jc, Jp = jacobian_blocks_bal(p.cameras, p.points, p.obs_2d, p.cam_idx, p.pt_idx, p.mask)
+    B = assemble(r, Jc, Jp, p.cam_idx, p.pt_idx, C, P, mask=p.mask)
+    B = B._replace(U=B.U.contiguous(), W=B.W.contiguous())
+    kw = dict(symmetric=True, pad_multiple=16, with_kernel_plans=True)
+    kw.update(plan_kw)
+    plan = pairs_mod.build_pair_plan(p.cam_idx, p.pt_idx, p.n_obs, C, P, **kw)
+    return B, plan
+
+
+def _f64(B):
+    return B._replace(U=B.U.double(), V=B.V.double(), W=B.W.double(), gc=B.gc.double(),
+                      gp=B.gp.double())
+
+
+def _rel_err_rows(out, ref):
+    """The worst row's max|out − ref| / max|ref|, a row being one block entry
+    (and band offset) over all cameras or segments: the entries of a 9×9
+    block span orders of magnitude, so each is held on its own scale. A row
+    whose reference is all zero must be exactly zero."""
+    d = (out.double() - ref).abs().amax(1)
+    scale = ref.abs().amax(1)
+    assert torch.all(d[scale == 0] == 0)
+    return (d / scale.clamp_min(1e-300)).max().item()
+
+
+def _held_to_plain_f32(out, plain32, ref64, what):
+    """The kernel's worst row against f64 within 1e-5 or ten times the plain
+    f32 version's own worst row."""
+    tol = max(1e-5, 10.0 * _rel_err_rows(plain32, ref64))
+    assert _rel_err_rows(out, ref64) <= tol, (what, _rel_err_rows(out, ref64), tol)
+
+
+@pytest.mark.parametrize("case,plan_kw", [
+    ("ring", {}), ("line", {}), ("gappy", dict(slots=True)),
+    ("gappy", dict(slots=True, tracks=False)), ("wide", dict(slots=True)), ("diagonal", {}),
+], ids=["ring", "line", "gappy", "gappy_slots_only", "wide", "diagonal"])
+def test_band_build_kernels_match_plain(dev, case, plan_kw):
+    B, plan = _band_system(dev, case, **plan_kw)
+    B64 = _f64(B)
+    pd, pd64 = pairs_mod.precompute_pair_data(B, plan), pairs_mod.precompute_pair_data(B64, plan)
+    if case == "gappy":
+        assert plan.slot is not None and (plan.track is not None) == ("tracks" not in plan_kw)
+        assert any((m == 0).any() for m in plan.slot.slot_mask)       # masked slots
+    if case == "line":
+        # a track of length 2 starts at the last camera but one and ends at the last
+        assert plan.track is not None and \
+            plan.track.keys[:plan.track.n_tracked].max() == plan.n_cameras - 2
+        assert (plan.track.slot_mask == 0).any()
+    before = dict(_lib.launches)
+    for lam in (1e-4, 1.0):
+        lam32 = torch.tensor(lam, device=dev)
+        lam64 = lam32.double()
+        out = fused_pair_blocks(pd.packed, plan.pair_seg, lam32, plan.k_pad, plan.seg_start,
+                                **BAND_KW)
+        again = fused_pair_blocks(pd.packed, plan.pair_seg, lam32, plan.k_pad, plan.seg_start,
+                                  **BAND_KW)
+        assert torch.equal(out, again)                                 # the same bits every run
+        ref = fused_pair_blocks_plain(pd64.packed, plan.pair_seg, lam64, plan.k_pad, **BAND_KW)
+        plain = fused_pair_blocks_plain(pd.packed, plan.pair_seg, lam32, plan.k_pad, **BAND_KW)
+        # the kernel leaves the trash segment of the padding pairs zero
+        assert torch.all(out[:, -1] == 0)
+        ref[:, -1] = 0
+        plain[:, -1] = 0
+        if ref.abs().max() > 0:
+            _held_to_plain_f32(out, plain, ref, "pairblocks")
+        empty = torch.ones(plan.k_pad, dtype=torch.bool, device=dev)
+        n_real = int((plan.pair_key < plan.n_cameras ** 2).sum())
+        empty[plan.pair_seg[:n_real].long()] = False
+        assert torch.all(out[:, empty] == 0)                           # empty segments exact zeros
+        if plan.track is not None:
+            out = fused_track_blocks(pd.trk_W, pd.trk_V, lam32, plan.track, **BAND_KW)
+            assert torch.equal(out, fused_track_blocks(pd.trk_W, pd.trk_V, lam32, plan.track,
+                                                       **BAND_KW))
+            ref = fused_track_blocks_plain(pd64.trk_W, pd64.trk_V, lam64, plan.track, **BAND_KW)
+            plain = fused_track_blocks_plain(pd.trk_W, pd.trk_V, lam32, plan.track, **BAND_KW)
+            _held_to_plain_f32(out, plain, ref, "trackband")
+            assert torch.all(out[:, ref.abs().sum(0) == 0] == 0)
+        if plan.slot is not None:
+            out = slot_band_blocks(pd.slot_W, pd.slot_V, lam32, plan.slot, **BAND_KW)
+            assert torch.equal(out, slot_band_blocks(pd.slot_W, pd.slot_V, lam32, plan.slot,
+                                                     **BAND_KW))
+            ref = slot_band_blocks_plain(pd64.slot_W, pd64.slot_V, lam64, plan.slot, **BAND_KW)
+            plain = slot_band_blocks_plain(pd.slot_W, pd.slot_V, lam32, plan.slot, **BAND_KW)
+            _held_to_plain_f32(out, plain, ref, "slotband")
+            assert torch.all(out[:, ref.abs().sum(0) == 0] == 0)
+        # the assembled band: kernels against plain versions
+        blk = pairs_mod._compact_blocks(B, lam32, plan, pd, FLOOR, CEIL)
+        assert torch.equal(blk, pairs_mod._compact_blocks(B, lam32, plan, pd, FLOOR, CEIL))
+        bare = pairs_mod.build_pair_plan(
+            B.cam_idx, B.pt_idx, int((B.W.abs().sum(0) > 0).sum()), plan.n_cameras,
+            B.V.shape[1], **dict(dict(symmetric=True, pad_multiple=16), **plan_kw))
+        ref = pairs_mod._compact_blocks(B64, lam64, bare, pd64, FLOOR, CEIL)
+        plain = pairs_mod._compact_blocks(B, lam32, bare, pd, FLOOR, CEIL)
+        _held_to_plain_f32(blk, plain, ref, "blk")
+    torch.cuda.synchronize()
+    assert _lib.launches["pairblocks"] == before["pairblocks"] + 8
+    assert (_lib.launches["trackband"] > before["trackband"]) == (plan.track is not None)
+    assert (_lib.launches["slotband"] > before["slotband"]) == (plan.slot is not None)
+
+
+def test_slot_kernel_drops_an_offset_without_a_band_slot(dev):
+    """Offset 4 is left out of the band: its products go nowhere, as in the
+    plain version, and the other cells are untouched by that."""
+    B, plan = _band_system(dev, "gappy", slots=True, tracks=False)
+    ci, pi = B.cam_idx.cpu().numpy(), B.pt_idx.cpu().numpy()
+    n_obs = int((B.W.abs().sum(0) > 0).sum().item())
+    sb = slots_mod.select_slot_buckets(ci, pi, n_obs, B.V.shape[1])
+    band = tuple(o for o in plan.band_offsets if o != 4)
+    assert 4 in plan.band_offsets
+    layout = slots_mod.finalize_slot_layout(sb, band, plan.c_pad, device=dev)
+    Ws, Vs = slots_mod.gather_slot_data(B.W, B.V, layout)
+    W64, V64 = [w.double() for w in Ws], [v.double() for v in Vs]
+    lam = torch.tensor(1e-2, device=dev)
+    out = slot_band_blocks(Ws, Vs, lam, layout, **BAND_KW)
+    ref = slot_band_blocks_plain(W64, V64, lam.double(), layout, **BAND_KW)
+    _held_to_plain_f32(out, slot_band_blocks_plain(Ws, Vs, lam, layout, **BAND_KW), ref, "slot")
+    assert out.shape == (81, len(band) * plan.c_pad)
+
+
+def test_slot_kernel_adds_into_the_band_it_is_given(dev):
+    """``out=``: the contributions land on top of what the band holds, in its
+    first k_band columns, and the columns behind them are left alone."""
+    B, plan = _band_system(dev, "gappy", slots=True)
+    pd = pairs_mod.precompute_pair_data(B, plan)
+    lam = torch.tensor(1e-2, device=dev)
+    fresh = slot_band_blocks(pd.slot_W, pd.slot_V, lam, plan.slot, **BAND_KW)
+    band = torch.randn((81, plan.k_pad), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(2))
+    want = band.clone()
+    want[:, :plan.k_band] += fresh
+    before = _lib.launches["slotband"]
+    got = slot_band_blocks(pd.slot_W, pd.slot_V, lam, plan.slot, out=band, **BAND_KW)
+    assert got is band and torch.equal(band, want) and plan.k_pad > plan.k_band
+    assert _lib.launches["slotband"] == before + len(plan.slot.degrees)
+    with pytest.raises(ValueError):         # a band narrower than the grid
+        slot_band_blocks(pd.slot_W, pd.slot_V, lam, plan.slot,
+                         out=band[:, :plan.k_band - 1].contiguous(), **BAND_KW)
+    with pytest.raises(ValueError):         # a view with gaps between its rows
+        slot_band_blocks(pd.slot_W, pd.slot_V, lam, plan.slot, out=band[:, :plan.k_band],
+                         **BAND_KW)
+
+
+def test_offband_leftovers_on_the_card_raise_unless_the_host_loop_is_asked_for(dev):
+    """A capped band with leftover segments: the PCG kernel does not apply
+    them, so asking for it raises; nothing gives way to the host loop. With
+    ``pcg_kernel=False`` the host loop runs over the kernel-built blocks and
+    gives the δ of the same solve on the CPU."""
+    B, plan = _band_system(dev, "leftover")
+    assert plan.banded and len(plan.band_offsets) == 32 and plan.n_segments > plan.k_band
+    lam = torch.tensor(1.0, device=dev)
+    kw = dict(cg_max_iters=200, cg_tol=1e-6, diag_floor=FLOOR, diag_ceil=CEIL)
+    _lib.reset_launches()
+    for ask in (None, True):
+        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+            pairs_mod.solve_schur_sparse(B, lam, plan, pcg_kernel=ask, **kw)
+    assert not any(_lib.launches.values())
+    dxc, dxp, _, ok = pairs_mod.solve_schur_sparse(B, lam, plan, pcg_kernel=False, **kw)
+    assert _lib.launches["pairblocks"] == 1 and _lib.launches["pcg_band"] == 0
+    Bc = type(B)(*[f.cpu() if isinstance(f, torch.Tensor) else f for f in B])
+    plan_c = pairs_mod.build_pair_plan(Bc.cam_idx, Bc.pt_idx, int((Bc.W.abs().sum(0) > 0).sum()),
+                                       plan.n_cameras, Bc.V.shape[1], symmetric=True,
+                                       pad_multiple=16, device="cpu")
+    rc, rp, _, rok = pairs_mod.solve_schur_sparse(Bc, lam.cpu(), plan_c, **kw)
+    assert bool(ok) and bool(rok)
+    assert _rel_err(dxc, rc.double().to(dev)) <= 1e-3
+    assert _rel_err(dxp, rp.double().to(dev)) <= 1e-3
+
+
+def _pcg_inputs(dev, case, lam=1.0, **plan_kw):
+    B, plan = _band_system(dev, case, **plan_kw)
+    assert plan.banded and plan.n_segments <= plan.k_band
+    pd = pairs_mod.precompute_pair_data(B, plan)
+    lam = torch.tensor(lam, device=dev)
+    blk = pairs_mod._compact_blocks(B, lam, plan, pd, FLOOR, CEIL)
+    _, Vl = damp_blocks(B, lam, FLOOR, CEIL)
+    b = schur_rhs(B, inv3x3_rows(Vl)).contiguous()
+    return plan, blk, pd.U_t, b, lam
+
+
+def _pcg_both(plan, blk, U_t, b, lam, **kw):
+    kw = dict(dict(U_t=U_t, lam=lam, diag_floor=FLOOR, diag_ceil=CEIL), **kw)
+    reads = pcg_mod.host_reads["cg"]
+    out = pcg_banded(blk, None, None, b, plan, **kw)
+    assert pcg_mod.host_reads["cg"] == reads            # the kernel reads nothing to the host
+    return out, pcg_banded_plain(blk, None, None, b, plan, **kw)
+
+
+@pytest.mark.parametrize("case,plan_kw", [("ring", {}), ("gappy", dict(slots=True)),
+                                          ("wide", dict(slots=True)), ("diagonal", {}),
+                                          ("long", {})],
+                         ids=["ring_wraparound", "gappy", "wide_13_blocks", "one_offset",
+                              "more_groups_than_blocks"])
+def test_pcg_kernel_matches_plain(dev, case, plan_kw):
+    plan, blk, U_t, b, lam = _pcg_inputs(dev, case, **plan_kw)
+    if case == "diagonal":
+        assert plan.band_offsets == (0,)
+    if case == "ring":
+        assert max(plan.band_offsets) == plan.n_cameras - 1
+    # a fixed number of iterations: the same arithmetic, in another order
+    (x, k, ok), (xp, kp, okp) = _pcg_both(plan, blk, U_t, b, lam, max_iters=5, tol=0.0)
+    n_fixed = 5 if case != "diagonal" else int(kp)      # block-Jacobi is exact on a diagonal S
+    assert int(k) == int(kp) == n_fixed and bool(ok) and bool(okp)
+    assert k.dtype == torch.int32 and ok.dtype == torch.bool and x.shape == b.shape
+    assert _rel_err(x, xp.double()) <= 1e-4
+    # to convergence: the true residual of the kernel's x in f64 meets the tolerance
+    tol = torch.tensor(1e-5, device=dev)
+    (x, k, ok), (xp, kp, okp) = _pcg_both(plan, blk, U_t, b, lam, max_iters=300, tol=tol)
+    assert bool(ok) and bool(okp) and abs(int(k) - int(kp)) <= 2 and int(k) < 300
+    Ul, _ = fold_damp_prologue(blk.double(), U_t.double(), lam.double(), plan.n_cameras, 9,
+                               FLOOR, CEIL)
+    res = b.double() - pairs_mod.make_banded_matvec(blk.double(), Ul, plan, 9)(x.double())
+    assert res.norm() <= 2e-5 * b.double().norm()
+    assert _rel_err(x, xp.double()) <= 1e-3
+    # the same bits every run
+    x2, k2, _ = pcg_banded(blk, None, None, b, plan, max_iters=300, tol=tol, U_t=U_t, lam=lam,
+                           diag_floor=FLOOR, diag_ceil=CEIL)
+    assert torch.equal(x, x2) and int(k) == int(k2)
+    # a warm start that already meets the tolerance takes no iteration
+    (x3, k3, ok3), (_, kp3, _) = _pcg_both(plan, blk, U_t, b, lam, max_iters=300, tol=1e-3, x0=x)
+    assert int(k3) == int(kp3) == 0 and bool(ok3) and torch.equal(x3, x)
+    # no budget: x0 comes back
+    (x4, k4, _), _ = _pcg_both(plan, blk, U_t, b, lam, max_iters=0, tol=1e-6, x0=x)
+    assert int(k4) == 0 and torch.equal(x4, x)
+
+
+def test_pcg_kernel_breakdown_freezes_the_iterate(dev):
+    plan, blk, U_t, b, lam = _pcg_inputs(dev, "ring")
+    x0 = torch.randn(b.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    (x, k, ok), (xp, kp, okp) = _pcg_both(plan, blk, -U_t, b, lam, max_iters=50, tol=1e-4, x0=x0)
+    assert not bool(ok) and not bool(okp) and int(k) == int(kp) == 1
+    assert torch.equal(x, x0) and torch.equal(xp, x0)
+
+
+def test_sparse_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    B, plan = _band_system(dev, "gappy", slots=True)
+    pd = pairs_mod.precompute_pair_data(B, plan)
+    lam = torch.tensor(1e-2, device=dev)
+    blk = pairs_mod._compact_blocks(B, lam, plan, pd, FLOOR, CEIL)
+    b = B.gc.contiguous()
+    before = dict(_lib.launches)
+    with pytest.raises(TypeError):          # f64 on the card: no quiet plain version
+        fused_pair_blocks(pd.packed.double(), plan.pair_seg, lam.double(), plan.k_pad,
+                          plan.seg_start, **BAND_KW)
+    with pytest.raises(TypeError):
+        fused_track_blocks(pd.trk_W.double(), pd.trk_V.double(), lam.double(), plan.track,
+                           **BAND_KW)
+    with pytest.raises(TypeError):
+        slot_band_blocks([w.double() for w in pd.slot_W], [v.double() for v in pd.slot_V],
+                         lam.double(), plan.slot, **BAND_KW)
+    with pytest.raises(TypeError):
+        pcg_banded(blk.double(), None, None, b.double(), plan, max_iters=5, tol=1e-4,
+                   U_t=pd.U_t.double(), lam=lam.double())
+    with pytest.raises(ValueError):         # CSR starts left on the CPU
+        fused_pair_blocks(pd.packed, plan.pair_seg, lam, plan.k_pad, plan.seg_start.cpu(),
+                          **BAND_KW)
+    with pytest.raises(ValueError):         # no kernel plan at all
+        fused_pair_blocks(pd.packed, plan.pair_seg, lam, plan.k_pad, None, **BAND_KW)
+    with pytest.raises(ValueError):         # a non-contiguous payload
+        fused_track_blocks(pd.trk_W.permute(0, 2, 1).contiguous().permute(0, 2, 1), pd.trk_V,
+                           lam, plan.track, **BAND_KW)
+    with pytest.raises(ValueError):         # b as a transposed view
+        pcg_banded(blk, None, None, b.T.contiguous().T, plan, max_iters=5, tol=1e-4,
+                   U_t=pd.U_t, lam=lam)
+    with pytest.raises(TypeError):          # λ as a host float
+        pcg_banded(blk, None, None, b, plan, max_iters=5, tol=1e-4, U_t=pd.U_t, lam=1e-2)
+    with pytest.raises(NotImplementedError, match="K8"):
+        pcg_banded(blk, pd.U_t, pd.U_t, b, plan, max_iters=5, tol=1e-4)
+    assert _lib.launches == before
+    # f64 on the card through the tier: refused, not run in plain PyTorch
+    p64, _ = make_synthetic_problem(10, 100, obs_per_point=4, seed=11, device=dev,
+                                    dtype=torch.float64)
+    with pytest.raises(TypeError):
+        solve(p64, LMConfig(max_iters=2, linear_solver="schur_sparse_pallas"))
+
+
+def test_sparse_solve_on_the_card_matches_the_plain_versions(dev):
+    """The sparse tier in f32: kernels on the card against plain versions on
+    the CPU from the same problem (λ₀ = 10, where the counts do not hinge on
+    rounding), every kernel launched, no per-CG-iteration host read, and the
+    same cost and CG counts on a second run."""
+    cfg = LMConfig(max_iters=6, init_lambda=10.0, linear_solver="schur_sparse_pallas")
+    p_cpu, _ = make_synthetic_problem(10, 100, obs_per_point=4, seed=11, device="cpu")
+    p_dev, _ = make_synthetic_problem(10, 100, obs_per_point=4, seed=11, device=dev)
+    _lib.reset_launches()
+    pcg_mod.reset_host_reads()
+    res = solve(p_dev, cfg)
+    launched, reads = dict(_lib.launches), dict(pcg_mod.host_reads)
+    ref = solve(p_cpu, cfg)
+    assert _lib.launches == launched        # the CPU solve launched nothing
+    for name in ("segsum", "linearize", "cost", "pairblocks", "trackband", "pcg_band"):
+        assert launched[name] > 0, launched
+    assert launched["pcg_band"] == 6 and reads == {"cg": 0, "lm": 6}
+    assert int(res.iterations) == int(ref.iterations) == 6
+    assert int(res.accepted) == int(ref.accepted)
+    np.testing.assert_allclose(res.cost.item(), ref.cost.item(), rtol=5e-4)
+    assert res.cost.item() < res.initial_cost.item()
+    again = solve(p_dev, cfg)
+    assert again.cost.item() == res.cost.item()
+    assert torch.equal(again.cg_history, res.cg_history)
+    plain = solve(p_dev, LMConfig(max_iters=6, init_lambda=10.0, linear_solver="schur_sparse"))
+    np.testing.assert_allclose(plain.cost.item(), res.cost.item(), rtol=5e-4)

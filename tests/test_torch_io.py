@@ -31,7 +31,10 @@ MODULES = [
     "tpu_ba_torch.io.synthetic", "tpu_ba_torch.io.bal", "tpu_ba_torch.kernels.segsum",
     "tpu_ba_torch.kernels.linearize", "tpu_ba_torch.solver.plans", "tpu_ba_torch.solver.normal",
     "tpu_ba_torch.solver.batched_linalg", "tpu_ba_torch.solver.pcg", "tpu_ba_torch.solver.schur",
-    "tpu_ba_torch.solver.lm", "tpu_ba_torch.cli",
+    "tpu_ba_torch.solver.lm", "tpu_ba_torch.cli", "tpu_ba_torch.solver.pairs",
+    "tpu_ba_torch.solver.tracks", "tpu_ba_torch.solver.slots", "tpu_ba_torch.kernels.pcg_band",
+    "tpu_ba_torch.kernels.pairblocks", "tpu_ba_torch.kernels.trackband",
+    "tpu_ba_torch.kernels.slotband", "tpu_ba_torch.kernels._lib",
 ]
 
 
@@ -52,7 +55,7 @@ def test_bal_like_generator_byte_identical(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path / "ref")
     ref, ref_gt = ref_bal_like("ladybug-49", dtype=np.float32)
     monkeypatch.chdir(tmp_path / "port")
-    port, gt = make_bal_like_problem("ladybug-49", dtype=torch.float32)
+    port, gt = make_bal_like_problem("ladybug-49", dtype=torch.float32, device="cpu")
     _assert_identical(port, ref)
     assert gt["n_obs"] == ref_gt["n_obs"] == 31843
     name = os.listdir(tmp_path / "ref" / "data" / "cache")
@@ -64,15 +67,17 @@ def test_bal_like_generator_byte_identical(tmp_path, monkeypatch):
         assert a[k].tobytes() == b[k].tobytes(), k
     # either package's cache serves the other
     monkeypatch.chdir(tmp_path / "ref")
-    _assert_identical(make_bal_like_problem("ladybug-49", dtype=torch.float32)[0], ref)
+    _assert_identical(make_bal_like_problem("ladybug-49", dtype=torch.float32,
+                                            device="cpu")[0], ref)
     with pytest.raises(NotImplementedError, match="item 7"):
-        make_bal_like_problem("ladybug-49", covis="community")
+        make_bal_like_problem("ladybug-49", covis="community", device="cpu")
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_synthetic_generator_byte_identical(dtype):
     ref, _ = ref_synthetic(10, 100, obs_per_point=4, seed=11, dtype=dtype, pad_multiple=128)
     port, _ = make_synthetic_problem(10, 100, obs_per_point=4, seed=11, pad_multiple=128,
+                                     device="cpu",
                                      dtype={np.float32: torch.float32,
                                             np.float64: torch.float64}[dtype])
     _assert_identical(port, ref)
@@ -82,7 +87,7 @@ def test_problem_bridge_round_trip():
     ref, _ = ref_synthetic(6, 40, obs_per_point=4, seed=3, dtype=np.float64, pad_multiple=64)
     arrays = {k: np.asarray(getattr(ref, k)) for k in FIELDS}
     port = problem_from_numpy(arrays, n_cameras=6, n_points=40, n_obs=ref.n_obs,
-                              dtype=torch.float64)
+                              dtype=torch.float64, device="cpu")
     _assert_identical(port, ref)
     back = problem_to_numpy(port)
     for k in FIELDS:
@@ -91,12 +96,12 @@ def test_problem_bridge_round_trip():
     # padding repeats the last index, so cam_idx stays sorted
     p = make_problem(arrays["cameras"], arrays["points"], arrays["obs_2d"][:ref.n_obs],
                      arrays["cam_idx"][:ref.n_obs][::-1], arrays["pt_idx"][:ref.n_obs][::-1],
-                     pad_multiple=64, dtype=torch.float64)
+                     pad_multiple=64, dtype=torch.float64, device="cpu")
     assert np.all(np.diff(p.cam_idx.numpy()) >= 0)
     assert p.cam_idx[-1] == p.cam_idx[ref.n_obs - 1] and p.pt_idx[-1] == p.pt_idx[ref.n_obs - 1]
     with pytest.raises(ValueError):
         problem_from_numpy(dict(arrays, cam_idx=arrays["cam_idx"][::-1]), n_cameras=6,
-                           n_points=40, n_obs=ref.n_obs)
+                           n_points=40, n_obs=ref.n_obs, device="cpu")
 
 
 def test_cuda_without_cuda_raises():
@@ -108,6 +113,44 @@ def test_cuda_without_cuda_raises():
         make_synthetic_problem(4, 10, device="cuda")
 
 
+def _entry_points():
+    z = np.zeros
+    return {
+        "make_problem": lambda **kw: make_problem(z((2, 9)), z((3, 3)), z((4, 2)), [0, 0, 1, 1],
+                                                  [0, 1, 1, 2], **kw),
+        "problem_from_numpy": lambda **kw: problem_from_numpy(
+            dict(cameras=z((2, 9)), points=z((3, 3)), obs_2d=z((4, 2)), cam_idx=[0, 0, 1, 1],
+                 pt_idx=[0, 1, 1, 2], mask=[True] * 4), n_cameras=2, n_points=3, n_obs=4, **kw),
+        "make_synthetic_problem": lambda **kw: make_synthetic_problem(4, 10, **kw)[0],
+        "make_bal_like_problem": lambda **kw: make_bal_like_problem("ladybug-49", **kw)[0],
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_default_device_is_the_card_and_raises_without_one(name, tmp_path, monkeypatch):
+    """An entry point runs on the CUDA card unless the caller asks for the
+    CPU: without a card the default raises a clear error (before any work),
+    it does not carry on on the CPU; ``device="cpu"`` works."""
+    monkeypatch.chdir(tmp_path)
+    call = _entry_points()[name]
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+        assert not os.listdir(tmp_path)           # failed before generating anything
+    assert call(device="cpu").device.type == "cpu"
+
+
+def test_cli_default_device_raises_without_a_card():
+    from tpu_ba_torch.cli import main
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        main(["ba", "--problem", "synthetic", "--max-iters", "1"])
+
+
 def test_f32_ladybug49_within_1pct_of_f64_golden(tmp_path, monkeypatch):
     """As tests/test_accuracy.py asserts for tpu_ba: the port's f32 solve
     (schur_pcg_pallas; the kernels' plain versions on the CPU) at the
@@ -115,7 +158,7 @@ def test_f32_ladybug49_within_1pct_of_f64_golden(tmp_path, monkeypatch):
     with open(os.path.join(REPO, "data", "goldens", "ladybug-49.json")) as fh:
         golden = json.load(fh)
     monkeypatch.chdir(tmp_path)
-    problem, _ = make_bal_like_problem("ladybug-49", dtype=torch.float32)
+    problem, _ = make_bal_like_problem("ladybug-49", dtype=torch.float32, device="cpu")
     cfg = LMConfig(max_iters=golden["max_iters"], cg_max_iters=golden["cg_max_iters"],
                    cg_tol=golden["cg_tol"], linear_solver="schur_pcg_pallas", init_lambda=1e-4)
     res = solve(problem, cfg)
@@ -127,10 +170,14 @@ def test_cli_ba_runs(capsys):
     from tpu_ba_torch.cli import main
 
     assert main(["ba", "--problem", "synthetic", "--max-iters", "3",
-                 "--solver", "schur_pcg_pallas", "--robust", "huber"]) == 0
+                 "--solver", "schur_pcg_pallas", "--robust", "huber", "--device", "cpu"]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["iterations"] == 3 and out["final_cost"] < out["initial_cost"]
     assert out["solver"] == "schur_pcg_pallas" and out["device"] == "cpu"
+    assert main(["ba", "--problem", "synthetic", "--max-iters", "3", "--solver",
+                 "schur_sparse_pallas", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["solver"] == "schur_sparse_pallas" and out["final_cost"] < out["initial_cost"]
 
 
 def test_port_imports_no_jax():
@@ -139,7 +186,7 @@ def test_port_imports_no_jax():
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tpu_ba.')))\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'tpu_ba') or m.startswith(('jax.', 'tpu_ba.')))\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -126,7 +126,7 @@ def _linearize_inputs(small_angle=None):
     port = problem_from_numpy(
         {k: np.asarray(getattr(problem, k)) for k in
          ("cameras", "points", "obs_2d", "cam_idx", "pt_idx", "mask")},
-        n_cameras=6, n_points=40, n_obs=problem.n_obs, dtype=torch.float64)
+        n_cameras=6, n_points=40, n_obs=problem.n_obs, dtype=torch.float64, device="cpu")
     return problem, port
 
 

@@ -39,7 +39,8 @@ CFG = dict(max_iters=8, init_lambda=10.0)
 def problems():
     ref, _ = ref_synthetic(10, 100, obs_per_point=4, seed=11, dtype=np.float64)
     port = problem_from_numpy({k: np.asarray(getattr(ref, k)) for k in FIELDS},
-                              n_cameras=10, n_points=100, n_obs=ref.n_obs, dtype=torch.float64)
+                              n_cameras=10, n_points=100, n_obs=ref.n_obs, dtype=torch.float64,
+                              device="cpu")
     return ref, port
 
 
@@ -112,8 +113,8 @@ def test_port_resumes_itself(problems):
 
 
 @pytest.mark.parametrize("override,match", [
-    (dict(linear_solver="schur_sparse_pallas"), "queue 2"),
-    (dict(linear_solver="schur_sparse"), "items 1-3"),
+    (dict(linear_solver="schur_sparse_pallas", precond="tridiag"), "queue 2"),
+    (dict(linear_solver="schur_dense_pallas"), "item 7"),
     (dict(linear_solver="schur_dense"), "item 7"),
     (dict(linear_solver="dense"), "item 7"),
     (dict(checkpoint_every=4, checkpoint_path="ck"), "item 6"),

@@ -49,7 +49,8 @@ def _close(out, ref, rtol=RTOL):
 def problems():
     ref, _ = ref_synthetic(C, P, obs_per_point=4, seed=11, dtype=np.float64)
     port = problem_from_numpy({k: np.asarray(getattr(ref, k)) for k in FIELDS},
-                              n_cameras=C, n_points=P, n_obs=ref.n_obs, dtype=torch.float64)
+                              n_cameras=C, n_points=P, n_obs=ref.n_obs, dtype=torch.float64,
+                              device="cpu")
     return ref, port
 
 

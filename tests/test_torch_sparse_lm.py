@@ -1,0 +1,199 @@
+"""The sparse-Schur tier as a whole: ``solve_schur_sparse`` against the
+reference's and against the port's own matrix-free solve on the same
+BlockSystem; ``solve(...)`` for ``schur_sparse`` and ``schur_sparse_pallas``
+against ``tpu_ba`` in f64; the f64 golden of ladybug-49; and the branches
+that are not ported yet.
+
+The slice comparison runs on the synthetic ring of ``test_torch_lm.py`` at
+λ₀ = 10, where CG counts vary (1 to 35) but do not hinge on rounding: there
+the cost histories agree to ~2e-12 (stated: 1e-9) with identical CG
+histories. Its plan engages tracks and is fully banded with wrap-around
+offsets, so on the CPU ``schur_sparse_pallas`` takes the fold-damp route
+through ``pcg_banded``'s plain version."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_bandblocks import ref_system, system_to_port
+from test_torch_pairs_plan import (CASES, community_problem, gappy_problem, index_maps,
+                                   plan_to_port, ring_problem)
+from tpu_ba.core import LMConfig as RefLMConfig
+from tpu_ba.io.bal import make_bal_like_problem as ref_bal_like
+from tpu_ba.io.synthetic import make_synthetic_problem as ref_synthetic
+from tpu_ba.solver import pairs as ref_pairs
+from tpu_ba.solver.lm import solve as ref_solve
+from tpu_ba_torch.core import LMConfig, problem_from_numpy
+from tpu_ba_torch.io.bal import make_bal_like_problem
+from tpu_ba_torch.kernels import _lib
+from tpu_ba_torch.solver import pairs as port_pairs
+from tpu_ba_torch.solver import pcg as pcg_mod
+from tpu_ba_torch.solver.lm import lm_loop, solve
+from tpu_ba_torch.solver.schur import solve_schur_pcg
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIELDS = ("cameras", "points", "obs_2d", "cam_idx", "pt_idx", "mask")
+CFG = dict(max_iters=8, init_lambda=10.0)
+KW = dict(cg_max_iters=500, cg_tol=1e-12, diag_floor=1e-6, diag_ceil=1e32)
+
+
+@pytest.mark.parametrize("case", ["ring_tracks", "gappy_slots", "gappy_tracks_and_slots",
+                                  "leftover_segments"])
+def test_solve_schur_sparse_matches_reference_and_matrix_free(case):
+    """The same δ from the reference's sparse solve, the port's, and the
+    port's matrix-free solve, at two dampings. CG stops at a relative
+    residual of 1e-12; at λ = 1e-3 the conditioning of S leaves ~3e-6 between
+    two such solutions, so δ is held to 1e-5."""
+    make, kw = CASES[case]
+    problem = make()
+    B = ref_system(problem)
+    Bp = system_to_port(B, np.float64)
+    plan = ref_pairs.build_pair_plan(*index_maps(problem), pad_multiple=16, **kw)
+    pp = plan_to_port(plan)
+    own = port_pairs.build_pair_plan(*index_maps(problem), pad_multiple=16, device="cpu", **kw)
+    for lam in (1e-3, 1.0):
+        dxc_r, dxp_r, _, ok_r = ref_pairs.solve_schur_sparse(B, lam, plan, **KW)
+        lam_t = torch.tensor(lam, dtype=torch.float64)
+        ref_c, ref_p = np.asarray(dxc_r), np.asarray(dxp_r)
+        for name, (dxc, dxp, _, ok) in {
+            "carried plan": port_pairs.solve_schur_sparse(Bp, lam_t, pp, **KW),
+            "own plan": port_pairs.solve_schur_sparse(Bp, lam_t, own, **KW),
+            "matrix-free": solve_schur_pcg(Bp, lam_t, **KW),
+        }.items():
+            assert bool(ok) and bool(ok_r), name
+            np.testing.assert_allclose(dxc.numpy(), ref_c, rtol=1e-5,
+                                       atol=1e-7 * np.abs(ref_c).max(), err_msg=name)
+            np.testing.assert_allclose(dxp.numpy(), ref_p, rtol=1e-5,
+                                       atol=1e-7 * np.abs(ref_p).max(), err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def problems():
+    ref, _ = ref_synthetic(10, 100, obs_per_point=4, seed=11, dtype=np.float64)
+    port = problem_from_numpy({k: np.asarray(getattr(ref, k)) for k in FIELDS}, n_cameras=10,
+                              n_points=100, n_obs=ref.n_obs, dtype=torch.float64, device="cpu")
+    return ref, port
+
+
+@pytest.mark.parametrize("tier", ["schur_sparse", "schur_sparse_pallas"])
+def test_slice_matches_reference(problems, tier):
+    ref_p, p = problems
+    ref = ref_solve(ref_p, RefLMConfig(linear_solver=tier, **CFG))
+    _lib.reset_launches()
+    res = solve(p, LMConfig(linear_solver=tier, **CFG))
+    assert not any(_lib.launches.values())         # CPU tensors: plain versions only
+    assert len(set(res.cg_history.tolist())) > 3   # early stops at varied counts
+    assert int(res.iterations) == int(ref.iterations) == 8
+    assert int(res.accepted) == int(ref.accepted)
+    np.testing.assert_array_equal(res.cg_history.numpy(), np.asarray(ref.cg_history))
+    np.testing.assert_allclose(res.cost_history.numpy(), np.asarray(ref.cost_history), rtol=1e-9)
+    np.testing.assert_allclose(res.lam_history.numpy(), np.asarray(ref.lam_history), rtol=1e-9)
+    np.testing.assert_allclose(float(res.cost), float(ref.cost), rtol=1e-9)
+    np.testing.assert_allclose(res.cameras.numpy(), np.asarray(ref.cameras), rtol=1e-8, atol=1e-10)
+    np.testing.assert_allclose(res.points.numpy(), np.asarray(ref.points), rtol=1e-8, atol=1e-10)
+
+
+def test_f32_pallas_tier_on_cpu_runs_the_fold_damp_route(problems):
+    """f32 on the CPU: ``schur_sparse_pallas`` goes through ``pcg_banded``
+    (plain version: Gauss–Jordan prologue, host loop), ``schur_sparse``
+    through ``inv_spd_small``; the same trajectory to f32 rounding."""
+    _, p64 = problems
+    p = p64.with_params(p64.cameras.float(), p64.points.float())
+    p = type(p)(**{**{k: getattr(p, k) for k in FIELDS}, "obs_2d": p64.obs_2d.float(),
+                   "n_cameras": 10, "n_points": 100, "n_obs": p64.n_obs})
+    a = solve(p, LMConfig(linear_solver="schur_sparse_pallas", **CFG))
+    b = solve(p, LMConfig(linear_solver="schur_sparse", **CFG))
+    assert a.cost.dtype == torch.float32 and int(a.iterations) == int(b.iterations) == 8
+    np.testing.assert_allclose(float(a.cost), float(b.cost), rtol=5e-4)
+    np.testing.assert_allclose(float(a.cost), float(solve(p64, LMConfig(
+        linear_solver="schur_sparse", **CFG)).cost), rtol=5e-4)
+
+
+def test_slots_engaged_through_lm_loop_match_matrix_free():
+    """A slot-major plan handed to ``lm_loop``: the same LM trajectory as the
+    matrix-free tier on the same problem (f64, λ₀ = 10)."""
+    ref_p, _ = ref_synthetic(16, 160, obs_per_point=4, seed=11, dtype=np.float64)
+    p = problem_from_numpy({k: np.asarray(getattr(ref_p, k)) for k in FIELDS}, n_cameras=16,
+                           n_points=160, n_obs=ref_p.n_obs, dtype=torch.float64, device="cpu")
+    plan = port_pairs.build_pair_plan(p.cam_idx, p.pt_idx, p.n_obs, 16, 160, symmetric=True,
+                                      slots=True, tracks=False, with_kernel_plans=True)
+    assert plan.slot is not None and plan.track is None and plan.pair_i.device.type == "cpu"
+    args = (p.cameras, p.points, p.obs_2d, p.cam_idx, p.pt_idx, p.mask, 16, 160)
+    cfg = dict(max_iters=6, init_lambda=10.0, cg_tol=1e-8, cg_max_iters=300)
+    a = lm_loop(*args, LMConfig(linear_solver="schur_sparse", **cfg), pairs=plan)
+    b = lm_loop(*args, LMConfig(linear_solver="schur_pcg", **cfg))
+    np.testing.assert_allclose(a.cost_history.numpy(), b.cost_history.numpy(), rtol=1e-7)
+    assert int(a.accepted) == int(b.accepted)
+    with pytest.raises(ValueError, match="pair plan"):
+        lm_loop(*args, LMConfig(linear_solver="schur_sparse", **cfg))
+
+
+def test_f64_schur_sparse_reproduces_ladybug49_golden(tmp_path, monkeypatch):
+    """The golden gate: the tier and config that made
+    data/goldens/ladybug-49.json (f64, schur_sparse, 50 iterations, CG 50 at
+    1e-2, λ₀ 1e-4) reach its final cost to 1e-6 relative. Of the golden's
+    cost history only the first entry is held: its later entries are those
+    of an earlier build of the reference (the second is 50820.73, where
+    ``tpu_ba`` as it stands gives 51505.08 with CG stopping at 15 of 50
+    iterations), and both paths end within 1e-8 of the same cost. The first
+    two iterations are held against ``tpu_ba`` itself, run here."""
+    with open(os.path.join(REPO, "data", "goldens", "ladybug-49.json")) as fh:
+        golden = json.load(fh)
+    assert golden["solver"] == "schur_sparse" and golden["dtype"] == "float64"
+    monkeypatch.chdir(tmp_path)
+    problem, _ = make_bal_like_problem("ladybug-49", dtype=torch.float64, device="cpu")
+    cfg = LMConfig(max_iters=golden["max_iters"], cg_max_iters=golden["cg_max_iters"],
+                   cg_tol=golden["cg_tol"], linear_solver="schur_sparse", init_lambda=1e-4)
+    pcg_mod.reset_host_reads()
+    res = solve(problem, cfg)
+    np.testing.assert_allclose(float(res.initial_cost), golden["initial_cost"], rtol=1e-9)
+    np.testing.assert_allclose(float(res.cost), golden["final_cost"], rtol=1e-6)
+    n = int(res.iterations)
+    assert bool(res.converged) and n < golden["max_iters"]
+    np.testing.assert_allclose(res.cost_history.numpy()[0], golden["cost_history"][0], rtol=1e-9)
+    assert pcg_mod.host_reads["lm"] == n and pcg_mod.host_reads["cg"] > 0
+    ref_problem, _ = ref_bal_like("ladybug-49", dtype=np.float64)
+    ref = ref_solve(ref_problem, RefLMConfig(
+        max_iters=2, cg_max_iters=golden["cg_max_iters"], cg_tol=golden["cg_tol"],
+        linear_solver="schur_sparse", init_lambda=1e-4))
+    np.testing.assert_allclose(res.cost_history.numpy()[:2], np.asarray(ref.cost_history),
+                               rtol=1e-9)
+    np.testing.assert_array_equal(res.cg_history.numpy()[:2], np.asarray(ref.cg_history))
+
+
+def _sparse_solve(make, plan_kw, **solve_kw):
+    problem = make()
+    Bp = system_to_port(ref_system(problem), np.float64)
+    plan = port_pairs.build_pair_plan(*index_maps(problem), symmetric=True, pad_multiple=16,
+                                      device="cpu", **plan_kw)
+    return port_pairs.solve_schur_sparse(Bp, torch.tensor(1e-3, dtype=torch.float64), plan,
+                                         **{**KW, **solve_kw})
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: _sparse_solve(ring_problem, dict(max_degree=3, tracks=False, slots=False)),
+     "queue 1, item 7"),                                    # heavy points
+    (lambda: _sparse_solve(community_problem, {}), "queue 1, item 7"),     # non-banded plan
+    (lambda: _sparse_solve(ring_problem, {}, precond="tridiag"), "K8"),
+    (lambda: _sparse_solve(ring_problem, {}, axis_name="obs"), "queue 1, item 8"),
+    (lambda: port_pairs.build_schur_t(), "queue 1, item 7"),
+    (lambda: port_pairs.solve_schur_dense(), "queue 1, item 7"),
+    (lambda: solve(make_bal_like_problem.__globals__["make_problem"](
+        np.zeros((2, 9)), np.zeros((3, 3)), np.zeros((4, 2)), [0, 0, 1, 1], [0, 1, 1, 2],
+        device="cpu"), LMConfig(linear_solver="schur_sparse", precond="tridiag")), "K8"),
+], ids=["heavy_points", "non_banded_plan", "tridiag_precond", "axis_name", "build_schur_t",
+        "solve_schur_dense", "config_precond"])
+def test_unported_sparse_branches_raise(call, match):
+    with pytest.raises(NotImplementedError, match=match):
+        call()
+
+
+def test_gappy_problem_plan_is_not_accidentally_trivial():
+    plan = port_pairs.build_pair_plan(*index_maps(gappy_problem()), symmetric=True, slots=True,
+                                      tracks=False, pad_multiple=16, device="cpu")
+    assert plan.slot.n_tracked > 300 and len(plan.slot.degrees) == 1

@@ -1,8 +1,8 @@
 """Command line: bundle-adjust a BAL stand-in problem with the PyTorch port.
 
 Usage:
-    python -m tpu_ba_torch.cli ba --problem ladybug-1723 --solver schur_pcg_pallas --device cuda
-    python -m tpu_ba_torch.cli ba --problem synthetic --max-iters 8
+    python -m tpu_ba_torch.cli ba --problem ladybug-1723 --solver schur_sparse_pallas
+    python -m tpu_ba_torch.cli ba --problem synthetic --max-iters 8 --device cpu
 
 Prints one JSON line with the result. Only the ``ba`` subcommand is ported;
 the reference's other subcommands (``tpu_ba/cli.py``) follow in later work.
@@ -26,25 +26,29 @@ def _add_ba(sub):
     p.add_argument("--cg-iters", type=int, default=50)
     p.add_argument("--cg-tol", type=float, default=1e-2)
     p.add_argument("--solver", default="schur_pcg",
-                   choices=["schur_pcg", "schur_pcg_pallas"],
-                   help="linear solver tier (schur_pcg_pallas: hand-written kernels)")
+                   choices=["schur_pcg", "schur_pcg_pallas", "schur_sparse",
+                            "schur_sparse_pallas"],
+                   help="linear solver tier (*_pallas: hand-written kernels)")
     p.add_argument("--robust", choices=["none", "huber", "cauchy", "arctan"], default="none")
     p.add_argument("--robust-scale", type=float, default=2.0)
-    p.add_argument("--device", default="cpu", help="torch device, e.g. cpu or cuda")
+    p.add_argument("--device", default=None,
+                   help="torch device; default: the CUDA card (fails without one), "
+                        "cpu to run on the CPU")
     p.add_argument("--config", default=None, help="JSON file of LMConfig overrides")
 
 
 def cmd_ba(args) -> int:
-    from tpu_ba_torch.core import LMConfig
+    from tpu_ba_torch.core import LMConfig, resolve_device
     from tpu_ba_torch.io.bal import make_bal_like_problem
     from tpu_ba_torch.io.synthetic import make_synthetic_problem
     from tpu_ba_torch.residuals.robust import ROBUST_KINDS
     from tpu_ba_torch.solver.lm import solve
 
+    device = resolve_device(args.device)
     if args.problem == "synthetic":
-        problem, gt = make_synthetic_problem(20, 500, device=args.device)
+        problem, gt = make_synthetic_problem(20, 500, device=device)
     else:
-        problem, gt = make_bal_like_problem(args.problem, device=args.device)
+        problem, gt = make_bal_like_problem(args.problem, device=device)
     n_obs = gt["n_obs"]
 
     kwargs = dict(max_iters=args.max_iters, cg_max_iters=args.cg_iters, cg_tol=args.cg_tol,

@@ -32,6 +32,35 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the CUDA card unless the caller
+    names another. ``None`` without a usable card raises; it never falls
+    back to the CPU (pass ``device="cpu"`` to ask for it)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "tpu_ba_torch runs on a CUDA card by default and torch.cuda.is_available() is "
+            "false; pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
+
+
+def device_of(index_map, device=None) -> torch.device:
+    """Where a host-built plan puts its tensors: ``device`` if given, else
+    the device of ``index_map`` when that is a tensor, else the default of
+    ``resolve_device``."""
+    if device is None and isinstance(index_map, torch.Tensor):
+        return index_map.device
+    return resolve_device(device)
+
+
+def to_host(a) -> np.ndarray:
+    """A tensor or array-like as a numpy array on the host."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 @dataclasses.dataclass(frozen=True)
 class BAProblem:
     """A (possibly padded) bundle-adjustment problem.
@@ -67,11 +96,12 @@ class BAProblem:
 def make_problem(cameras, points, obs_2d, cam_idx, pt_idx, *,
                  model: str = "bal", pad_obs_to: int | None = None,
                  pad_multiple: int = 1024, dtype=torch.float32,
-                 sort: bool = True, device="cpu") -> BAProblem:
+                 sort: bool = True, device=None) -> BAProblem:
     """Build a BAProblem from numpy arrays: sorts observations by camera,
     pads the observation axis to a bucket size, casts and places the
-    tensors on ``device`` (asking for CUDA without CUDA raises). Same
-    layout as ``tpu_ba.core.make_problem``."""
+    tensors on ``device`` (default: the CUDA card, see ``resolve_device``).
+    Same layout as ``tpu_ba.core.make_problem``."""
+    device = resolve_device(device)
     cameras = np.asarray(cameras)
     points = np.asarray(points)
     obs_2d = np.asarray(obs_2d)
@@ -107,12 +137,13 @@ def make_problem(cameras, points, obs_2d, cam_idx, pt_idx, *,
 
 
 def problem_from_numpy(arrays: dict, *, n_cameras: int, n_points: int,
-                       n_obs: int, model: str = "bal", device="cpu",
+                       n_obs: int, model: str = "bal", device=None,
                        dtype=torch.float32) -> BAProblem:
     """The port's BAProblem from the fields of an already padded and
     camera-sorted problem (e.g. a ``tpu_ba.core.BAProblem``) given as numpy
     arrays: ``cameras, points, obs_2d, cam_idx, pt_idx, mask``. Nothing is
     re-sorted or re-padded, so both packages see the same observation order."""
+    device = resolve_device(device)
     missing = [k for k in _ARRAY_FIELDS if k not in arrays]
     if missing:
         raise KeyError(f"problem arrays missing {missing}")
@@ -139,8 +170,10 @@ def problem_to_numpy(problem: BAProblem) -> dict:
 class LMConfig:
     """Levenberg–Marquardt trust-region configuration; the fields and
     defaults of ``tpu_ba.core.LMConfig``. This package runs the
-    ``schur_pcg`` and ``schur_pcg_pallas`` tiers; ``solve`` refuses the
-    others and the options it does not run yet (see ``tpu_ba_torch/solver/lm.py``)."""
+    matrix-free tiers (``schur_pcg``, ``schur_pcg_pallas``) and the
+    sparse-Schur tiers (``schur_sparse``, ``schur_sparse_pallas``); ``solve``
+    refuses the others and the options it does not run yet (see
+    ``tpu_ba_torch/solver/lm.py``)."""
 
     max_iters: int = 50
     init_lambda: float = 1e-4
@@ -153,8 +186,8 @@ class LMConfig:
     # robustification
     robust_kind: int = ROBUST_NONE
     robust_scale: float = 1.0
-    # inner linear solver: "schur_pcg" (plain torch reductions) or
-    # "schur_pcg_pallas" (the hand-written kernels)
+    # inner linear solver: "schur_pcg" / "schur_sparse" (plain torch) or
+    # "schur_pcg_pallas" / "schur_sparse_pallas" (the hand-written kernels)
     linear_solver: str = "schur_pcg"
     cg_max_iters: int = 100
     cg_tol: float = 1e-3
@@ -162,7 +195,7 @@ class LMConfig:
     cg_warm_start: bool = True
     # >0: per-linearization CG tolerance clip(sqrt(‖g‖∞/‖g₀‖∞), cg_tol, cg_forcing)
     cg_forcing: float = 0.0
-    # PCG preconditioner; the matrix-free tiers use the block-Jacobi one
+    # PCG preconditioner; only the block-Jacobi one is ported
     precond: str = "jacobi"
     diag_floor: float = 1e-6
     diag_ceil: float = 1e32

@@ -16,7 +16,7 @@ import os
 import numpy as np
 import torch
 
-from tpu_ba_torch.core import make_problem
+from tpu_ba_torch.core import make_problem, resolve_device
 from tpu_ba_torch.io.synthetic import (_cross_np, _look_at_rotation,
                                        _matrix_to_aa_np, _project_bal_np)
 
@@ -41,11 +41,12 @@ def make_bal_like_problem(
     dtype=torch.float32,
     pad_multiple: int = 1024,
     covis: str = "ring",
-    device="cpu",
+    device=None,
 ):
     """Synthesize the ring stand-in for BAL problem ``name``, with its exact
     observation count. Returns (problem, ground_truth dict). The cache lives
     under ``data/cache/`` relative to the working directory."""
+    device = resolve_device(device)
     if name not in BAL_DATASET_DIMS:
         raise KeyError(f"unknown BAL stand-in {name!r}; have {sorted(BAL_DATASET_DIMS)}")
     if covis != "ring":

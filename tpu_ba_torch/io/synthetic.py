@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_ba_torch.core import BAProblem, make_problem
+from tpu_ba_torch.core import BAProblem, make_problem, resolve_device
 
 
 def _cross_np(a, b):
@@ -92,10 +92,11 @@ def make_synthetic_problem(
     seed: int = 0,
     dtype=torch.float32,
     pad_multiple: int = 1024,
-    device="cpu",
+    device=None,
 ) -> tuple[BAProblem, dict]:
     """A ring-of-cameras BA problem; each point is seen by its
     ``obs_per_point`` nearest cameras. Returns (problem, ground_truth)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
 
     angles = 2 * np.pi * np.arange(n_cams) / n_cams

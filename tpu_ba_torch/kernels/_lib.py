@@ -2,9 +2,11 @@
 
 The sources compile with ``nvcc`` into one shared library with a plain C
 interface, loaded through ``ctypes``: no PyTorch headers, so a build takes
-seconds. The library lands in ``build/tpu_ba_torch/`` at the root of the
-checkout, named by a hash of the sources and flags, and is built on first
-use; a failed build raises with nvcc's output. Nothing here runs at import.
+seconds. Each ``.cu`` compiles to its own object, all started together, and
+one link makes the library. It lands in ``build/tpu_ba_torch/`` at the root
+of the checkout, named by a hash of the sources and flags, and is built on
+first use; a failed build raises with nvcc's output. Nothing here runs at
+import.
 
 Each wrapper counts its launches in ``launches`` — one per call that
 launches its kernel, none for a call that takes the plain version.
@@ -24,16 +26,31 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_ba_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 # kernel name → launches since the last reset
-launches = {"segsum": 0, "linearize": 0, "cost": 0}
+launches = {"segsum": 0, "linearize": 0, "cost": 0, "pcg_band": 0, "trackband": 0,
+            "slotband": 0, "pairblocks": 0}
 
 _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
+    # packed, seg_start, lam, out, n_pairs, k_pad, group_log2, diag_floor,
+    # diag_ceil, stream
+    "tba_pair_blocks": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    # Wt, Vt, mask, key_start, lam, out, dmax, pt_pad, c_pad, diag_floor,
+    # diag_ceil, stream
+    "tba_track_blocks": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    # W, cam, mask, V, row_start, off_idx, lam, out, degree, pt_pad, span,
+    # c_pad, ld_out, diag_floor, diag_ceil, stream
+    "tba_slot_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    # blk, ld, U_t, b, x0, offsets, n_offsets, n_cameras, c_pad, lam, tol,
+    # max_iters, diag_floor, diag_ceil, work, partial, x, iterations, ok, stream
+    "tba_pcg_banded": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _F, _F, _P, _P,
+                       _P, _P, _P, _P],
     # values, seg_start, out, n_rows, n_obs, n_out, group_log2, stream
     "tba_segsum_t": [_P, _P, _P, _I, _I, _I, _I, _P],
     # cams, pts, obs, pt_idx, mask, cam_start, n_cameras, n_obs, robust_kind,
@@ -77,14 +94,32 @@ def build_library() -> Path:
         return path
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
+    tag = f"{path.stem}.{os.getpid()}"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for cmd, _, proc in jobs:                  # wait for every compile, then report
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = BUILD_DIR / f"{tag}.tmp"
+        cmd = [nvcc, "-shared", "-o", str(tmp), *[str(o) for o in objs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return path
 
 
@@ -114,6 +149,8 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
                  device: torch.device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device`` — what the kernel takes."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: {type(t).__name__}, the kernel takes a tensor on {device}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:

@@ -10,15 +10,25 @@ exactly.
 
 Host reads: each λ-retry brings one small tensor to the host (accepted,
 λ below its ceiling, and the convergence test evaluated as if this retry
-were the last), and each CG iteration one flag (``solver/pcg.py``); both are
-counted in ``tpu_ba_torch.solver.pcg.host_reads``.
+were the last), and each CG iteration of the host-loop PCG one flag
+(``solver/pcg.py``); both are counted in
+``tpu_ba_torch.solver.pcg.host_reads``. The banded PCG kernel (K4) runs its
+loop on the device and reads nothing.
 
-Linear-solver tiers:
-  * "schur_pcg"        — matrix-free Schur + block-Jacobi PCG, plain PyTorch
-                         reductions
-  * "schur_pcg_pallas" — the same with the hand-written kernels: K2
-                         (linearize), K3 (trial cost) and K1 (every segment
-                         sum). The name is the reference's.
+Linear-solver tiers (the names are the reference's):
+  * "schur_pcg"           — matrix-free Schur + block-Jacobi PCG, plain
+                            PyTorch reductions
+  * "schur_pcg_pallas"    — the same with the hand-written kernels: K2
+                            (linearize), K3 (trial cost) and K1 (every
+                            segment sum)
+  * "schur_sparse"        — explicit block-sparse Schur complement from a
+                            static covisibility-pair plan
+                            (``solver/pairs.py``), all plain PyTorch: the
+                            CPU oracle and the f64 tier
+  * "schur_sparse_pallas" — the same with K2/K3/K1, the band built by K7
+                            (pairs), K5 (tracks) and K6 (slots), and the
+                            whole PCG solve in K4 when the plan is fully
+                            banded
 """
 
 from __future__ import annotations
@@ -35,18 +45,18 @@ from tpu_ba_torch.kernels.linearize import fused_cost, fused_linearize_assemble
 from tpu_ba_torch.residuals.reprojection import residuals_bal
 from tpu_ba_torch.residuals.robust import robust_rho
 from tpu_ba_torch.solver.normal import BlockSystem, assemble
+from tpu_ba_torch.solver.pairs import build_pair_plan, precompute_pair_data, solve_schur_sparse
 from tpu_ba_torch.solver.pcg import read_flags
 from tpu_ba_torch.solver.plans import build_plans, pt_segsum_t
 from tpu_ba_torch.solver.schur import solve_schur_pcg
 
-TIERS = ("schur_pcg", "schur_pcg_pallas")
+TIERS = ("schur_pcg", "schur_pcg_pallas", "schur_sparse", "schur_sparse_pallas")
+SPARSE_TIERS = ("schur_sparse", "schur_sparse_pallas")
 # the reference's other tiers, and the ROADMAP item that brings each
 _NOT_PORTED = {
     "dense": "ROADMAP queue 1, item 7 (remaining tiers: the full-H oracle)",
     "schur_dense": "ROADMAP queue 1, item 7 (remaining tiers: dense reduced system)",
     "schur_dense_pallas": "ROADMAP queue 1, item 7 (remaining tiers: dense reduced system)",
-    "schur_sparse": "ROADMAP queue 1, items 1-3 (host planners, sparse-Schur runtime)",
-    "schur_sparse_pallas": "ROADMAP queue 1, items 1-3 and queue 2, K4-K7",
 }
 
 
@@ -58,6 +68,10 @@ def check_config(config: LMConfig) -> None:
             raise ValueError(f"unknown linear_solver {config.linear_solver!r}")
         raise NotImplementedError(
             f"linear_solver={config.linear_solver!r} is not ported yet: {where}")
+    if config.precond != "jacobi":
+        raise NotImplementedError(
+            f"precond={config.precond!r} is not ported yet: ROADMAP queue 1, item 7 (the PCR "
+            "block-tridiagonal preconditioner) and queue 2, K8")
     if config.checkpoint_every > 0:
         raise NotImplementedError(
             "checkpoint_every>0 (chunked checkpointing) is not ported yet: ROADMAP queue 1, item 6")
@@ -71,12 +85,17 @@ def _robust_cost(r, kind, scale, mask):
 
 
 def lm_loop(cams0, pts0, obs, ci, pi, mask, n_cameras: int, n_points: int,
-            config: LMConfig, plans=None, init_state=None) -> LMResult:
-    """The LM trust-region loop. ``init_state`` = (lam, nu, it[, warm_dxc,
+            config: LMConfig, plans=None, init_state=None, pairs=None) -> LMResult:
+    """The LM trust-region loop. ``pairs`` is the pair plan of the sparse
+    tiers (``solver/pairs.py``). ``init_state`` = (lam, nu, it[, warm_dxc,
     gnorm0]) — numbers, numpy arrays or tensors, e.g. from a ``tpu_ba``
     LMResult — resumes the trust-region state; with cams0/pts0 from the same
     source the resumed trajectory is the uninterrupted one."""
     check_config(config)
+    sparse = config.linear_solver in SPARSE_TIERS
+    if sparse and pairs is None:
+        raise ValueError(f"linear_solver={config.linear_solver!r} needs a pair plan "
+                         "(solve() builds one)")
     dtype, device = cams0.dtype, cams0.device
     kind, scale = config.robust_kind, config.robust_scale
     use_fused = (plans is not None and cams0.shape[-1] == 9
@@ -111,6 +130,15 @@ def lm_loop(cams0, pts0, obs, ci, pi, mask, n_cameras: int, n_points: int,
             Jc = Jc * colmask[None, :, None]
         return assemble(r, Jc, Jp, ci, pi, n_cameras, n_points, kind, scale, mask, plans)
 
+    def linear_solve(B, lam, pair_data, cg_x0, cg_tol):
+        kw = dict(cg_max_iters=config.cg_max_iters, cg_tol=cg_tol, cg_x0=cg_x0,
+                  diag_floor=config.diag_floor, diag_ceil=config.diag_ceil, plans=plans)
+        if sparse:
+            return solve_schur_sparse(
+                B, lam, pairs, pair_data, precond=config.precond,
+                pcg_kernel=config.linear_solver == "schur_sparse_pallas", **kw)
+        return solve_schur_pcg(B, lam, **kw)
+
     M = config.max_iters
     cost0 = cost_fn(cams0, pts0)
     hist = cost0.reshape(1).repeat(M)
@@ -138,6 +166,8 @@ def lm_loop(cams0, pts0, obs, ci, pi, mask, n_cameras: int, n_points: int,
     done = False
     while it < M and not done:
         B = linearize(cams, pts)
+        # λ-free pair-space gathers, amortized over the λ-retries
+        pair_data = precompute_pair_data(B, pairs) if sparse else None
         gnorm = torch.maximum(B.gc.abs().max(), B.gp.abs().max())
         gnorm0 = torch.where(gnorm0 > 0, gnorm0, gnorm)
         cg_tol = config.cg_tol
@@ -154,10 +184,8 @@ def lm_loop(cams0, pts0, obs, ci, pi, mask, n_cameras: int, n_points: int,
         accepted, done = False, True
         dxc = warm
         while not accepted and it < M and lam_ok:
-            dxc, dxp, n_cg, solve_ok = solve_schur_pcg(
-                B, lam, cg_max_iters=config.cg_max_iters, cg_tol=cg_tol,
-                cg_x0=dxc if config.cg_warm_start else None,
-                diag_floor=config.diag_floor, diag_ceil=config.diag_ceil, plans=plans)
+            dxc, dxp, n_cg, solve_ok = linear_solve(
+                B, lam, pair_data, dxc if config.cg_warm_start else None, cg_tol)
             new_cams = cams + dxc
             new_pts = pts + dxp
             new_cost = cost_fn(new_cams, new_pts)
@@ -177,7 +205,7 @@ def lm_loop(cams0, pts0, obs, ci, pi, mask, n_cameras: int, n_points: int,
             nu_next = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
             hist[it] = torch.where(accept, new_cost, cost)
             lam_hist[it] = lam
-            cg_hist[it] = n_cg
+            cg_hist[it] = n_cg             # an int, or K4's device count: no host read
 
             # convergence tests on this (possibly last) attempted step
             cost_next = torch.where(accept, new_cost, cost)
@@ -220,11 +248,13 @@ _PLAN_MEMO: dict = {}
 _PLAN_MEMO_MAX = 8
 
 
-def _plan_key(problem: BAProblem, tag: str) -> tuple:
+def _structure_key(problem: BAProblem) -> tuple:
+    """What a host-built plan depends on: the index maps (hashed on the
+    host, so computed once per solve), the sizes and the device."""
     h = hashlib.blake2b(digest_size=16)
     h.update(problem.cam_idx.cpu().numpy().tobytes())
     h.update(problem.pt_idx.cpu().numpy().tobytes())
-    return (tag, str(problem.device), problem.n_obs, problem.cameras.shape[0],
+    return (str(problem.device), problem.n_obs, problem.cameras.shape[0],
             problem.points.shape[0], h.hexdigest())
 
 
@@ -239,10 +269,12 @@ def _memoized(key, build):
 def solve(problem: BAProblem, config: LMConfig | None = None, *,
           init_state=None) -> LMResult:
     """Bundle-adjust ``problem`` with Levenberg–Marquardt on the problem's
-    device. ``linear_solver="schur_pcg_pallas"`` builds the segment plans
-    (``solver/plans.py``) and runs the hand-written kernels; on CPU tensors
-    the kernels' plain versions run instead. ``init_state`` is that of
-    ``lm_loop``."""
+    device. The ``*_pallas`` tiers build the segment plans
+    (``solver/plans.py``) and run the hand-written kernels; on CPU tensors
+    the kernels' plain versions run instead. The sparse tiers build the
+    covisibility-pair plan (``solver/pairs.py``), with what the kernels walk
+    only for ``schur_sparse_pallas``. Plans are memoized per problem
+    structure. ``init_state`` is that of ``lm_loop``."""
     if config is None:
         config = LMConfig()
     if problem.model == "pinhole":
@@ -252,13 +284,23 @@ def solve(problem: BAProblem, config: LMConfig | None = None, *,
     elif problem.model != "bal":
         raise ValueError(f"solve() handles the 'bal' and 'pinhole' models; got {problem.model!r}")
     check_config(config)
-    plans = None
-    if config.linear_solver == "schur_pcg_pallas":
+    plans = pairs = None
+    if config.linear_solver.endswith("_pallas") or config.linear_solver in SPARSE_TIERS:
+        structure = _structure_key(problem)
+    if config.linear_solver.endswith("_pallas"):
         plans = _memoized(
-            _plan_key(problem, "assembly"),
+            ("assembly",) + structure,
             lambda: build_plans(problem.cam_idx, problem.pt_idx,
                                 problem.cameras.shape[0], problem.points.shape[0]))
+    if config.linear_solver in SPARSE_TIERS:
+        kernels = config.linear_solver == "schur_sparse_pallas"
+        # S = Sᵀ: the compact path stores only the ci ≤ cj blocks
+        pairs = _memoized(
+            (f"pairs-{kernels}",) + structure,
+            lambda: build_pair_plan(problem.cam_idx, problem.pt_idx, problem.n_obs,
+                                    problem.cameras.shape[0], problem.points.shape[0],
+                                    with_kernel_plans=kernels, symmetric=True))
     return lm_loop(problem.cameras, problem.points, problem.obs_2d, problem.cam_idx,
                    problem.pt_idx, problem.mask, problem.cameras.shape[0],
                    problem.points.shape[0], config, plans=plans,
-                   init_state=init_state)
+                   init_state=init_state, pairs=pairs)

@@ -15,8 +15,10 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from tpu_ba_torch.core import resolve_device
 from tpu_ba_torch.residuals.robust import robust_rho, robust_weight
 from tpu_ba_torch.solver.plans import cam_segsum_t, pt_segsum_t
 
@@ -32,6 +34,21 @@ class BlockSystem(NamedTuple):
     cost: torch.Tensor     # scalar, ½ Σ ρ(|r|²)
     cam_idx: torch.Tensor  # (O,)
     pt_idx: torch.Tensor   # (O,)
+
+
+def block_system_from_numpy(U, V, W, gc, gp, cam_idx, pt_idx, cost=0.0, *, dtype=torch.float32,
+                            device=None) -> BlockSystem:
+    """The port's BlockSystem from the blocks of an assembled system (e.g. a
+    ``tpu_ba.solver.normal.BlockSystem``) given as numpy arrays in the
+    lane-major layouts above; ``cam_idx`` / ``pt_idx`` become int32."""
+    device = resolve_device(device)
+
+    def t(a, dt):
+        return torch.as_tensor(np.array(a, order="C"), dtype=dt, device=device)
+
+    return BlockSystem(U=t(U, dtype), V=t(V, dtype), W=t(W, dtype), gc=t(gc, dtype),
+                       gp=t(gp, dtype), cost=t(cost, dtype), cam_idx=t(cam_idx, torch.int32),
+                       pt_idx=t(pt_idx, torch.int32))
 
 
 def apply_irls_weights(r, Jc, Jp, robust_kind: int, robust_scale: float, mask=None):

@@ -1,0 +1,614 @@
+"""Block-sparse explicit Schur complement via a static covisibility-pair plan.
+
+Counterpart of ``tpu_ba/solver/pairs.py``. The reduced camera system
+S = U_λ − W V_λ⁻¹ Wᵀ is kept as its nonzero 9×9 blocks: a host-built plan
+enumerates, for every point and every pair (i, j) of its observations, the
+contribution W_i V_λ,p⁻¹ W_jᵀ to camera block (cam_i, cam_j). All λ-dependent
+work then happens in pair space with no gathers:
+
+  per linearization (λ-free): gather W and V into pair, track and slot order
+      (``precompute_pair_data``);
+  per λ-retry: damp and invert the 3×3 point blocks in place, form the pair
+      products, reduce them into the compact blocks (``_compact_blocks``:
+      K7 for enumerated pairs, K5 for consecutive tracks, K6 for short
+      tracks with gaps), then block-Jacobi PCG on the blocks
+      (``solve_schur_sparse``: K4 when the kernel is asked for, which needs
+      a fully banded plan; the host loop of ``solver/pcg.py`` over
+      ``make_banded_matvec`` when it is not).
+
+With ``symmetric=True`` only the ci ≤ cj half is stored; ``banded`` lays the
+first ``k_band`` segments out as a dense (offset, camera) grid, segment
+o·c_pad + c holding block T_{c, c+band_offsets[o]}.
+
+The planning is host numpy and follows the reference branch for branch, so
+the structure can be held against it array for array. Ported here: the
+symmetric banded plan with the block-Jacobi preconditioner. Plans with heavy
+points, non-banded plans, the tridiagonal preconditioner, the sharded solve,
+the dense tier and the PCG kernel over a band with off-band leftovers raise
+NotImplementedError naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tpu_ba_torch.core import _round_up, device_of, to_host
+from tpu_ba_torch.kernels.pairblocks import fused_pair_blocks, fused_pair_blocks_plain
+from tpu_ba_torch.kernels.pcg_band import pcg_banded
+from tpu_ba_torch.kernels.segsum import sorted_segment_sum_t_plain
+from tpu_ba_torch.kernels.slotband import slot_band_blocks, slot_band_blocks_plain
+from tpu_ba_torch.kernels.trackband import fused_track_blocks, fused_track_blocks_plain
+from tpu_ba_torch.solver import slots as slots_mod
+from tpu_ba_torch.solver import tracks as tracks_mod
+from tpu_ba_torch.solver.batched_linalg import inv_spd_small
+from tpu_ba_torch.solver.normal import BlockSystem, damp_blocks
+from tpu_ba_torch.solver.pcg import pcg
+from tpu_ba_torch.solver.schur import back_substitute, inv3x3_rows, schur_rhs
+
+PAIR_ARRAYS = ("pair_i", "pair_j", "pair_pt", "pair_key", "pair_seg", "seg_ci", "seg_cj",
+               "diag_pos", "heavy_obs", "heavy_cam", "heavy_seg", "heavy_pt_ids")
+PAIR_OPTIONAL_ARRAYS = ("seg_perm_cj", "cj_keys", "nondiag")
+PAIR_META = ("n_pairs", "n_cameras", "max_degree", "n_segments", "k_pad", "n_heavy_obs",
+             "n_heavy_pts", "symmetric", "banded", "band_offsets", "c_pad", "k_band")
+
+
+@dataclasses.dataclass(frozen=True)
+class PairPlan:
+    """Static covisibility-pair schedule, tensors on one device.
+
+    Padding pairs carry key == C² and segment k_pad−1 (a trash segment the
+    caller zeroes after the reduction). ``pair_seg`` maps each pair to its
+    compact segment (ascending); ``seg_ci``/``seg_cj`` give each segment's
+    camera pair (padding segments carry ci == C); ``diag_pos`` locates camera
+    c's (c, c) block. ``seg_start`` (k_pad + 1 int32, the CSR starts of the
+    real pairs' ``pair_seg``) is what the pair kernel walks in place of the
+    reference's ``seg_plan`` (None ⇒ the plain versions run).
+    """
+
+    pair_i: torch.Tensor     # (Np,) int32, observation of the row side
+    pair_j: torch.Tensor     # (Np,) int32, observation of the column side
+    pair_pt: torch.Tensor    # (Np,) int32, the shared point
+    pair_key: torch.Tensor   # (Np,) int32, ci·C + cj; C² on padding
+    pair_seg: torch.Tensor   # (Np,) int32, compact segment id, ascending
+    seg_ci: torch.Tensor     # (k_pad,) int32, row camera per segment; C on pad
+    seg_cj: torch.Tensor     # (k_pad,) int32, column camera per segment; 0 on pad
+    diag_pos: torch.Tensor   # (C,) int32, segment of block (c, c); k_pad−1 if absent
+    # points whose track exceeds max_degree are not pair-enumerated
+    heavy_obs: torch.Tensor     # (Oh,) int32
+    heavy_cam: torch.Tensor     # (Oh,) int32
+    heavy_seg: torch.Tensor     # (Oh,) int32
+    heavy_pt_ids: torch.Tensor  # (Ph,) int32
+    n_pairs: int             # padded pair count
+    n_cameras: int
+    max_degree: int
+    n_segments: int          # K, the true number of covisible camera pairs
+    k_pad: int               # padded segment count
+    n_heavy_obs: int
+    n_heavy_pts: int
+    seg_start: torch.Tensor | None = None
+    symmetric: bool = False
+    seg_perm_cj: torch.Tensor | None = None   # (k_pad,) permutation: cj-sorted
+    cj_keys: torch.Tensor | None = None       # (k_pad,) seg_cj[perm]; C on padding
+    nondiag: torch.Tensor | None = None       # (k_pad,) 1.0 off-diagonal, 0.0 diagonal
+    banded: bool = False
+    band_offsets: tuple = ()    # ascending, band_offsets[0] == 0 when banded
+    band_offsets_t: torch.Tensor | None = None   # the same, (n_off,) int32 on the device
+    c_pad: int = 0              # camera padding of the band grid
+    k_band: int = 0             # len(band_offsets) · c_pad
+    track: tracks_mod.TrackLayout | None = None
+    slot: slots_mod.SlotLayout | None = None
+
+
+def pair_plan_from_numpy(arrays: dict, *, track=None, slot=None, with_kernel_plans: bool = False,
+                         device=None, **meta) -> PairPlan:
+    """The port's PairPlan from the reference's fields given as numpy arrays
+    (``PAIR_ARRAYS``, optionally ``PAIR_OPTIONAL_ARRAYS``) and the ints,
+    bools and ``band_offsets`` tuple of ``PAIR_META``; ``track`` and
+    ``slot`` are the port's layouts or None."""
+    device = device_of(None, device)
+
+    def t(a, dt=np.int32):
+        return torch.as_tensor(np.asarray(a).astype(dt), device=device)
+
+    missing = [k for k in PAIR_ARRAYS if k not in arrays] + [k for k in PAIR_META if k not in meta]
+    if missing:
+        raise KeyError(f"pair plan fields missing: {missing}")
+    seg = np.asarray(arrays["pair_seg"]).astype(np.int64)
+    if seg.size and np.any(np.diff(seg) < 0):
+        raise ValueError("pair_seg must be sorted ascending")
+    C, k_pad = int(meta["n_cameras"]), int(meta["k_pad"])
+    seg_start = None
+    if with_kernel_plans:
+        n_real = int((np.asarray(arrays["pair_key"]).astype(np.int64) < C * C).sum())
+        seg_start = t(np.searchsorted(seg[:n_real], np.arange(k_pad + 1), side="left"))
+    band_offsets = tuple(int(o) for o in meta["band_offsets"])
+    opt = {k: arrays.get(k) for k in PAIR_OPTIONAL_ARRAYS}
+    return PairPlan(
+        **{k: t(arrays[k]) for k in PAIR_ARRAYS},
+        n_pairs=int(meta["n_pairs"]), n_cameras=C, max_degree=int(meta["max_degree"]),
+        n_segments=int(meta["n_segments"]), k_pad=k_pad, n_heavy_obs=int(meta["n_heavy_obs"]),
+        n_heavy_pts=int(meta["n_heavy_pts"]), seg_start=seg_start,
+        symmetric=bool(meta["symmetric"]),
+        seg_perm_cj=None if opt["seg_perm_cj"] is None else t(opt["seg_perm_cj"]),
+        cj_keys=None if opt["cj_keys"] is None else t(opt["cj_keys"]),
+        nondiag=None if opt["nondiag"] is None else t(opt["nondiag"], np.float32),
+        banded=bool(meta["banded"]), band_offsets=band_offsets,
+        band_offsets_t=t(np.asarray(band_offsets, np.int64)) if band_offsets else None,
+        c_pad=int(meta["c_pad"]), k_band=int(meta["k_band"]), track=track, slot=slot)
+
+
+def build_pair_plan(cam_idx, pt_idx, n_obs: int, n_cameras: int, n_points: int, *,
+                    max_degree: int = 64, pad_multiple: int = 2048,
+                    with_kernel_plans: bool = False, symmetric: bool = False,
+                    banded: bool = True, tracks: bool | None = None,
+                    slots: bool | None = None, device=None) -> PairPlan:
+    """Host-side plan: enumerate observation pairs sharing a point, sorted by
+    camera-pair key. Points whose track exceeds ``max_degree`` are split off
+    as *heavy* (recorded, not enumerated).
+
+    ``symmetric`` enumerates only the ci ≤ cj half. ``banded`` (symmetric
+    only) lays the segments out as a dense (offset, ci) grid when the band
+    would cover most pairs. ``tracks``/``slots`` hand the consecutive and the
+    short gapped tracks to their own layouts (``solver/tracks.py``,
+    ``solver/slots.py``) instead of enumerating them. ``with_kernel_plans``
+    also builds what the CUDA kernels walk (CSR starts). The plan's tensors
+    live on ``device`` (default: that of ``cam_idx``)."""
+    device = device_of(cam_idx, device)
+    cam_idx, pt_idx = to_host(cam_idx), to_host(pt_idx)
+    ci = cam_idx[:n_obs].astype(np.int64)
+    pi = pt_idx[:n_obs].astype(np.int64)
+
+    order = np.argsort(pi, kind="stable").astype(np.int64)
+    pi_sorted = pi[order]
+    deg = np.bincount(pi_sorted, minlength=n_points)
+    dmax = int(deg.max()) if deg.size else 0
+    starts = np.concatenate([[0], np.cumsum(deg)])[:-1]
+
+    # track-major split: points whose cameras form a consecutive run skip
+    # pair enumeration; zeroing their degree removes them from both the heavy
+    # set and the pair loop
+    if tracks is None:
+        tracks = bool(symmetric and banded)
+    # an explicit slots=True engages regardless of size; the default applies
+    # a minimum so tiny problems keep to pairs
+    slot_min = 0 if slots is True else 4096
+    if slots is None:
+        slots = tracks      # tracks=False is the "pure pair enumeration" switch
+    trk_mask = None
+    trk_dmax = 0
+    covered_obs = 0
+    if tracks and symmetric and banded:
+        tm, _, _, _ = tracks_mod.split_tracks(cam_idx, pt_idx, n_obs, n_points)
+        # a handful of coincidentally consecutive tracks on an unstructured
+        # problem must not force the banded layout: engage from 5% of the
+        # observations
+        trk_obs = int(deg[tm].sum()) if tm.any() else 0
+        trk_min = int(0.05 * max(n_obs, 1))
+        if tm.any() and trk_obs >= max(trk_min, 1):
+            trk_mask = tm
+            trk_dmax = int(deg[tm].max())
+            covered_obs += trk_obs
+            deg = deg.copy()
+            deg[tm] = 0
+
+    # slot-major split: composes with tracks, taking the remaining eligible
+    # points
+    slot_buckets = None
+    slot_span_max = 0
+    if slots and symmetric and banded:
+        elig = slots_mod.slot_eligible(cam_idx, pt_idx, n_obs, n_points)
+        if (elig[0] & (deg > 0)).sum() >= max(slot_min, 1):
+            sb = slots_mod.select_slot_buckets(cam_idx, pt_idx, n_obs, n_points, elig=elig,
+                                               candidate_mask=deg > 0)
+            if sb is not None and sb.n_tracked >= slot_min:
+                slot_buckets = sb
+                slot_span_max = sb.span_max
+                covered_obs += int(deg[sb.accepted_pts].sum())
+                deg = deg.copy()
+                deg[sb.accepted_pts] = 0
+
+    # heavy points: excluded from pair enumeration
+    heavy_mask = deg > max_degree
+    heavy_pt_ids = np.nonzero(heavy_mask)[0].astype(np.int64)
+    n_heavy_pts = int(heavy_pt_ids.shape[0])
+    if n_heavy_pts:
+        is_heavy_obs = heavy_mask[pi_sorted]
+        heavy_obs = order[is_heavy_obs]
+        heavy_seg = np.searchsorted(heavy_pt_ids, pi_sorted[is_heavy_obs])
+        csort = np.argsort(ci[heavy_obs], kind="stable")     # camera-sorted
+        heavy_obs, heavy_seg = heavy_obs[csort], heavy_seg[csort]
+        oh = heavy_obs.shape[0]
+        pad_h = _round_up(oh, 256) - oh
+        # padding repeats the last observation (keys stay sorted) under the
+        # trash heavy segment n_heavy_pts
+        heavy_obs = np.concatenate([heavy_obs, np.full(pad_h, heavy_obs[-1], np.int64)])
+        heavy_seg = np.concatenate([heavy_seg, np.full(pad_h, n_heavy_pts, np.int64)])
+        heavy_cam = ci[heavy_obs]
+        n_heavy_obs = oh
+    else:
+        heavy_obs = np.zeros(0, np.int64)
+        heavy_seg = np.zeros(0, np.int64)
+        heavy_cam = np.zeros(0, np.int64)
+        n_heavy_obs = 0
+
+    light_dmax = int(deg[~heavy_mask].max()) if (~heavy_mask).any() else 0
+    chunks_i, chunks_j, chunks_p = [], [], []
+    for d in range(1, light_dmax + 1):
+        pts = np.nonzero(deg == d)[0]
+        if pts.size == 0:
+            continue
+        base = starts[pts]
+        obsmat = order[base[:, None] + np.arange(d)[None, :]]     # (n_d, d)
+        if symmetric:
+            # unordered pairs with the diagonal, oriented so ci(ii) ≤ ci(jj)
+            iu, ju = np.triu_indices(d)
+            oa = obsmat[:, iu].reshape(-1)
+            ob = obsmat[:, ju].reshape(-1)
+            swap = ci[oa] > ci[ob]
+            ii = np.where(swap, ob, oa)
+            jj = np.where(swap, oa, ob)
+            pp = np.broadcast_to(pts[:, None], (pts.size, iu.size)).reshape(-1)
+        else:
+            ii = np.broadcast_to(obsmat[:, :, None], (pts.size, d, d)).reshape(-1)
+            jj = np.broadcast_to(obsmat[:, None, :], (pts.size, d, d)).reshape(-1)
+            pp = np.broadcast_to(pts[:, None, None], (pts.size, d, d)).reshape(-1)
+        chunks_i.append(ii)
+        chunks_j.append(jj)
+        chunks_p.append(pp)
+
+    pair_i = np.concatenate(chunks_i) if chunks_i else np.zeros(0, np.int64)
+    pair_j = np.concatenate(chunks_j) if chunks_j else np.zeros(0, np.int64)
+    pair_p = np.concatenate(chunks_p) if chunks_p else np.zeros(0, np.int64)
+    np_real = pair_i.shape[0]
+
+    use_banded = bool(symmetric and banded
+                      and (np_real or trk_mask is not None or slot_buckets is not None))
+    # band-coverage admission, unless track and slot layouts already cover
+    # most observations (their structure is in-band by construction)
+    if use_banded and np_real and covered_obs < 0.5 * max(n_obs, 1):
+        # band only when the capped band would cover most off-diagonal pairs
+        # (the diagonal is stored either way and would mask a useless band)
+        off_all = ci[pair_j] - ci[pair_i]
+        off_nz = off_all[off_all > 0]
+        _, cnt_all = np.unique(off_nz, return_counts=True)
+        top32 = np.sort(cnt_all)[::-1][:32].sum()
+        if off_nz.size and top32 < 0.5 * off_nz.size:
+            use_banded = False
+            if trk_mask is not None or slot_buckets is not None:
+                # partially engaged layouts need the band grid; without it
+                # their points go back to pair enumeration
+                return build_pair_plan(
+                    cam_idx, pt_idx, n_obs, n_cameras, n_points, max_degree=max_degree,
+                    pad_multiple=pad_multiple, with_kernel_plans=with_kernel_plans,
+                    symmetric=symmetric, banded=False, tracks=False, slots=False, device=device)
+    band_list: tuple = ()
+    c_pad = k_band = 0
+    np_pad = _round_up(max(np_real, 1), pad_multiple)
+    pad = np_pad - np_real
+    fill_obs = max(n_obs - 1, 0)
+    if use_banded:
+        # every populated offset cj − ci when there are ≤ 32 of them (a fully
+        # banded plan lets the whole PCG loop run as one kernel); with more,
+        # the 32 heaviest by pair count, the rest off-band
+        cip = ci[pair_i]
+        cjp = ci[pair_j]
+        off = cjp - cip                                   # ≥ 0 (ci ≤ cj)
+        u_off, n_pairs_per_off = np.unique(off, return_counts=True)
+        # the window offsets the track and slot builds write are mandatory
+        # band slots: protect them through the 32-offset cap
+        protect = max(trk_dmax, slot_span_max + 1 if slot_buckets is not None else 0)
+        if protect:
+            extra = np.setdiff1d(np.arange(protect), u_off)
+            u_off = np.concatenate([u_off, extra])
+            n_pairs_per_off = np.concatenate(
+                [n_pairs_per_off.astype(np.int64), np.full(extra.shape, 1 << 60, np.int64)])
+            srt = np.argsort(u_off)
+            u_off, n_pairs_per_off = u_off[srt], n_pairs_per_off[srt]
+            n_pairs_per_off = np.where(u_off < protect, 1 << 60, n_pairs_per_off)
+        band_mask = np.ones(u_off.shape[0], bool)
+        if u_off.shape[0] > 32:                           # cap the band width
+            order_cnt = np.argsort(-n_pairs_per_off)
+            keep = set(u_off[order_cnt[:32]].tolist()) | {0}
+            band_mask = np.array([o in keep for o in u_off])
+        band_arr = u_off[band_mask]
+        if 0 not in band_arr:
+            band_arr = np.concatenate([[0], band_arr])
+        band_list = tuple(int(o) for o in band_arr)
+        # +trk_dmax margin: the track keys start+a ≤ (C−1)+(dmax−1) must stay
+        # inside one band row
+        c_pad = _round_up(n_cameras + trk_dmax, 128)
+        k_band = len(band_list) * c_pad
+
+        off_to_idx = np.full(int(u_off.max()) + 1, -1, np.int64)
+        off_to_idx[band_arr] = np.arange(len(band_list))
+        oi = off_to_idx[off]
+        in_band = oi >= 0
+        seg_real = np.empty(np_real, np.int64)
+        seg_real[in_band] = oi[in_band] * c_pad + cip[in_band]
+        left_key = cip[~in_band] * n_cameras + cjp[~in_band]
+        u_left = np.unique(left_key)
+        seg_real[~in_band] = k_band + np.searchsorted(u_left, left_key)
+        K = k_band + int(u_left.shape[0])
+        k_pad = _round_up(K + 1, pad_multiple)
+
+        perm = np.argsort(seg_real, kind="stable")
+        pair_i, pair_j, pair_p = pair_i[perm], pair_j[perm], pair_p[perm]
+        seg_real = seg_real[perm]
+        key = ci[pair_i] * n_cameras + ci[pair_j]
+        pair_seg = np.concatenate([seg_real, np.full(pad, k_pad - 1, np.int64)])
+
+        # segment → camera pair (band slots: absent ⇒ trash row C)
+        seg_ci = np.full(k_pad, n_cameras, np.int64)
+        seg_cj = np.zeros(k_pad, np.int64)
+        slot_c = np.arange(k_band) % c_pad
+        slot_off = np.asarray(band_list)[np.arange(k_band) // c_pad]
+        slot_ok = (slot_c < n_cameras) & (slot_c + slot_off < n_cameras)
+        seg_ci[:k_band] = np.where(slot_ok, slot_c, n_cameras)
+        seg_cj[:k_band] = np.where(slot_ok, slot_c + slot_off, 0)
+        seg_ci[k_band:K] = u_left // n_cameras
+        seg_cj[k_band:K] = u_left % n_cameras
+        diag_pos = np.arange(n_cameras)                   # slot (0, c) = c
+    else:
+        key = ci[pair_i] * n_cameras + ci[pair_j]
+        perm = np.argsort(key, kind="stable")
+        pair_i, pair_j, pair_p, key = pair_i[perm], pair_j[perm], pair_p[perm], key[perm]
+        # compact segments: rank the K distinct real keys; padding pairs land
+        # in the trash segment k_pad−1
+        uniq, inv = np.unique(key, return_inverse=True)
+        K = int(uniq.shape[0])
+        k_pad = _round_up(K + 1, pad_multiple)
+        pair_seg = np.concatenate([inv.reshape(-1), np.full(pad, k_pad - 1, np.int64)])
+        seg_ci = np.full(k_pad, n_cameras, np.int64)
+        seg_cj = np.zeros(k_pad, np.int64)
+        seg_ci[:K] = uniq // n_cameras
+        seg_cj[:K] = uniq % n_cameras
+        diag_key = np.arange(n_cameras) * (n_cameras + 1)
+        diag_pos = np.minimum(np.searchsorted(uniq, diag_key), max(K - 1, 0))
+        hit = uniq[diag_pos] == diag_key if K else np.zeros(n_cameras, bool)
+        diag_pos = np.where(hit, diag_pos, k_pad - 1)
+    pair_i = np.concatenate([pair_i, np.full(pad, fill_obs, np.int64)])
+    pair_j = np.concatenate([pair_j, np.full(pad, fill_obs, np.int64)])
+    pair_p = np.concatenate([pair_p, np.zeros(pad, np.int64)])
+    key = np.concatenate([key, np.full(pad, n_cameras * n_cameras, np.int64)])
+
+    seg_perm_cj = cj_keys = nondiag = None
+    if symmetric and not use_banded:
+        # transposed-pass schedule: segments permuted into cj-sorted order
+        # (padding segments → trash camera C, so sortedness holds)
+        cj_eff = np.where(seg_ci == n_cameras, n_cameras, seg_cj)
+        seg_perm_cj = np.argsort(cj_eff, kind="stable").astype(np.int64)
+        cj_keys = cj_eff[seg_perm_cj]
+        nondiag = (seg_ci != seg_cj).astype(np.float32)
+
+    track_layout = None
+    if trk_mask is not None:
+        track_layout = tracks_mod.build_track_layout(
+            cam_idx, pt_idx, n_obs, n_cameras, n_points, c_pad,
+            with_kernel_plans=with_kernel_plans, device=device)
+    slot_layout = None
+    if slot_buckets is not None and use_banded:
+        slot_layout = slots_mod.finalize_slot_layout(
+            slot_buckets, band_list, c_pad, with_kernel_plans=with_kernel_plans, device=device)
+
+    return pair_plan_from_numpy(
+        dict(pair_i=pair_i, pair_j=pair_j, pair_pt=pair_p, pair_key=key, pair_seg=pair_seg,
+             seg_ci=seg_ci, seg_cj=seg_cj, diag_pos=diag_pos, heavy_obs=heavy_obs,
+             heavy_cam=heavy_cam, heavy_seg=heavy_seg, heavy_pt_ids=heavy_pt_ids,
+             seg_perm_cj=seg_perm_cj, cj_keys=cj_keys, nondiag=nondiag),
+        track=track_layout, slot=slot_layout, with_kernel_plans=with_kernel_plans,
+        device=device, n_pairs=np_pad, n_cameras=n_cameras, max_degree=dmax, n_segments=K,
+        k_pad=k_pad, n_heavy_obs=n_heavy_obs, n_heavy_pts=n_heavy_pts, symmetric=symmetric,
+        banded=use_banded, band_offsets=band_list, c_pad=c_pad, k_band=k_band)
+
+
+class PairData(NamedTuple):
+    """λ-free per-linearization gathers, reused across λ-retries.
+
+    ``packed`` (2·3dc+9, Np) lane-major: rows 0..3dc−1 are W[pair_i], rows
+    3dc..6dc−1 W[pair_j], the last 9 rows V[pair_pt]."""
+
+    packed: torch.Tensor
+    # track-major pack: W in (27, dmax, Pt) slot order, V in start-sorted order
+    trk_W: torch.Tensor | None = None
+    trk_V: torch.Tensor | None = None
+    # slot-major pack: per degree bucket (27, d, Pk) / (9, Pk)
+    slot_W: tuple | None = None
+    slot_V: tuple | None = None
+    # undamped lane-major camera blocks (dc², c_pad) for the fold-damp PCG
+    # prologue (λ-free; damped and inverted per retry inside K4)
+    U_t: torch.Tensor | None = None
+
+
+def _refuse_heavy(pairs: PairPlan) -> None:
+    if pairs.n_heavy_pts:
+        raise NotImplementedError(
+            f"a pair plan with {pairs.n_heavy_pts} heavy points (tracks longer than max_degree) "
+            "needs the matrix-free heavy-track operator, which is not ported yet: ROADMAP queue "
+            "1, item 7 (_heavy_operator)")
+
+
+def precompute_pair_data(B: BlockSystem, pairs: PairPlan) -> PairData:
+    """λ-free per-linearization gathers into pair, track and slot order. The
+    BlockSystem is lane-major ((3dc, O) / (9, P)), so these are gathers along
+    the last axis."""
+    _refuse_heavy(pairs)
+    packed = torch.cat([B.W[:, pairs.pair_i], B.W[:, pairs.pair_j], B.V[:, pairs.pair_pt]], dim=0)
+    trk_W = trk_V = None
+    if pairs.track is not None:
+        trk_W, trk_V = tracks_mod.gather_track_data(B.W, B.V, pairs.track)
+    slot_W = slot_V = None
+    if pairs.slot is not None:
+        slot_W, slot_V = slots_mod.gather_slot_data(B.W, B.V, pairs.slot)
+        slot_W, slot_V = tuple(slot_W), tuple(slot_V)
+    U_t = None
+    if pairs.banded:
+        dc = B.U.shape[-1]
+        C = pairs.n_cameras
+        U_t = torch.zeros((dc * dc, pairs.c_pad), dtype=B.U.dtype, device=B.U.device)
+        U_t[:, :C] = B.U.permute(1, 2, 0).reshape(dc * dc, C)
+    return PairData(packed, trk_W=trk_W, trk_V=trk_V, slot_W=slot_W, slot_V=slot_V, U_t=U_t)
+
+
+def _compact_blocks(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData,
+                    diag_floor: float, diag_ceil: float):
+    """blk (dc², k_pad): the K nonzero (dc×dc) blocks of T = W V_λ⁻¹ Wᵀ in
+    compact segment order (blk[dc·i+j, k] = T_{seg_ci[k], seg_cj[k]}[i, j]);
+    columns ≥ K are exact zeros. A plan built with kernel plans goes through
+    the K7/K5/K6 wrappers, any other through the plain versions."""
+    dc = B.U.shape[-1]
+    kw = dict(dc=dc, diag_floor=diag_floor, diag_ceil=diag_ceil)
+    if pairs.seg_start is not None:
+        blk = fused_pair_blocks(pair_data.packed, pairs.pair_seg, lam, pairs.k_pad,
+                                pairs.seg_start, **kw)
+    else:
+        blk = fused_pair_blocks_plain(pair_data.packed, pairs.pair_seg, lam, pairs.k_pad, **kw)
+    # only the trash column k_pad−1 receives padding pairs: zero it so reads
+    # of absent diagonals through diag_pos are exact zeros
+    blk[:, -1] = 0.0
+
+    if pairs.track is not None:
+        # slot pair (a, b) of a track starting at c0 is band block
+        # (offset b−a, row c0+a), added on top of the enumerated pairs
+        tl = pairs.track
+        build = fused_track_blocks if tl.key_start is not None else fused_track_blocks_plain
+        tout = build(pair_data.trk_W, pair_data.trk_V, lam, tl, **kw)
+        d2 = dc * dc
+        cp = pairs.c_pad
+        for g in range(tl.dmax):
+            pos = pairs.band_offsets.index(g) * cp
+            blk[:, pos:pos + cp] += tout[g * d2:(g + 1) * d2, :cp]
+
+    if pairs.slot is not None:
+        # the slot build works on the off-major band grid itself, the layout
+        # of blk[:, :k_band]: the kernel adds into blk in place
+        sl = pairs.slot
+        if sl.row_start is not None:
+            slot_band_blocks(pair_data.slot_W, pair_data.slot_V, lam, sl, out=blk, **kw)
+        else:
+            blk[:, :pairs.k_band] += slot_band_blocks_plain(pair_data.slot_W, pair_data.slot_V,
+                                                            lam, sl, **kw)
+    return blk
+
+
+def make_banded_matvec(blk, Ul, pairs: PairPlan, dc: int):
+    """S·x for the banded symmetric layout. The band region of ``blk`` is a
+    dense (offset, ci) grid, so applying T is shifts and products with no
+    gathers: forward y_c −= Σ_off T_{c,c+off} x_{c+off} and, for off > 0, the
+    transposed y_{c+off} −= T_{c,c+off}ᵀ x_c. The lanes a circular shift
+    wraps into hold zero band blocks (cj = c+off ≥ C has no segment).
+    Off-band leftover segments (a few ring wrap-arounds or loop closures when
+    the band is capped) go through gathers on their small slice."""
+    C = pairs.n_cameras
+    Bn = len(pairs.band_offsets)
+    Cp = pairs.c_pad
+    Sb = blk[:, :pairs.k_band].reshape(dc, dc, Bn, Cp)
+    have_left = pairs.n_segments > pairs.k_band
+    if have_left:
+        lblk = blk[:, pairs.k_band:].reshape(dc, dc, -1)
+        lci = pairs.seg_ci[pairs.k_band:].long()
+        lcj = pairs.seg_cj[pairs.k_band:].long()
+        lci_in = torch.clamp(lci, max=C - 1)
+
+    def matvec(x):
+        y = torch.einsum("cij,cj->ci", Ul, x)
+        x_t = torch.zeros((dc, Cp), dtype=x.dtype, device=x.device)
+        x_t[:, :C] = x.T
+        Xs = torch.stack([torch.roll(x_t, -off, dims=1) for off in pairs.band_offsets])
+        t = torch.einsum("mnoc,onc->mc", Sb, Xs)
+        if Bn > 1:
+            u = torch.einsum("mnoc,mc->onc", Sb[:, :, 1:], x_t)     # (B−1, dc, Cp)
+            for oi, off in enumerate(pairs.band_offsets[1:]):
+                t = t + torch.roll(u[oi], off, dims=1)
+        y = y - t[:, :C].T
+        if have_left:
+            zl = torch.einsum("mnl,nl->ml", lblk, x.T[:, lcj])      # T x by row camera
+            zl2 = torch.einsum("mnl,ml->nl", lblk, x.T[:, lci_in])  # Tᵀ x by column camera
+            tl = sorted_segment_sum_t_plain(zl, lci, C + 1)
+            tl2 = sorted_segment_sum_t_plain(zl2, lcj, C + 1)
+            y = y - tl[:, :C].T - tl2[:, :C].T
+        return y
+
+    return matvec
+
+
+def solve_schur_sparse(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData | None = None,
+                       *, cg_max_iters: int, cg_tol, cg_x0=None, diag_floor: float,
+                       diag_ceil: float, plans=None, axis_name=None,
+                       pcg_kernel: bool | None = None, precond: str = "jacobi"):
+    """Linear solve on the block-sparse explicit reduced camera system.
+
+    Returns (δ_cameras, δ_points, cg_iters, ok), the contract of
+    ``solve_schur_pcg``; on the kernel route ``cg_iters`` is a 0-dim device
+    tensor. ``pcg_kernel`` (default: whether the plan carries kernel plans)
+    asks for K4, which takes a fully banded plan (no off-band leftover
+    segments) of any size. With tensors on the card and leftovers it raises:
+    nothing gives way to the host-loop PCG there unless the caller passes
+    ``pcg_kernel=False`` (the ``schur_sparse`` tier). On the CPU the kernel
+    route is the plain version of K4 in f32 and the host loop otherwise."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            "the sharded solve (axis_name) is not ported yet: ROADMAP queue 1, item 8")
+    if precond != "jacobi":
+        raise NotImplementedError(
+            f"precond={precond!r}: only the block-Jacobi preconditioner is ported; the "
+            "block-tridiagonal one is ROADMAP queue 1, item 7 (and queue 2, K8)")
+    _refuse_heavy(pairs)
+    if not pairs.banded:
+        raise NotImplementedError(
+            "a non-banded pair plan needs the generic compact matvec, which is not ported yet: "
+            "ROADMAP queue 1, item 7 (non-banded symmetric compact matvec)")
+    want_kernel = pcg_kernel if pcg_kernel is not None else pairs.seg_start is not None
+    on_card = B.U.device.type == "cuda"
+    fully_banded = pairs.n_segments <= pairs.k_band
+    if want_kernel and on_card and not fully_banded:
+        raise NotImplementedError(
+            f"the PCG kernel takes a fully banded plan; this one keeps "
+            f"{pairs.n_segments - pairs.k_band} off-band leftover segments, which it does not "
+            "apply yet: ROADMAP queue 1, item 4 (K4 over off-band leftovers). "
+            "linear_solver='schur_sparse' runs the host-loop PCG over the same blocks")
+    if pair_data is None:
+        pair_data = precompute_pair_data(B, pairs)
+    C = pairs.n_cameras
+    dc = B.U.shape[-1]
+
+    blk = _compact_blocks(B, lam, pairs, pair_data, diag_floor, diag_ceil)
+    Ul, Vl_pts = damp_blocks(B, lam, diag_floor, diag_ceil)
+    Vinv_pts = inv3x3_rows(Vl_pts)
+    b = schur_rhs(B, Vinv_pts, plans)
+
+    if want_kernel and fully_banded and (B.U.dtype == torch.float32 or on_card):
+        # fold-damp route: K4 takes the undamped U_t and computes the damped
+        # Ul and the block-Jacobi M⁻¹ in its prologue. f64 on the CPU keeps
+        # to the host loop below, as the reference's f64 does; f64 on the
+        # card is refused by the wrapper.
+        dx_cam, cg_iters, ok = pcg_banded(
+            blk, None, None, b, pairs, max_iters=cg_max_iters, tol=cg_tol, x0=cg_x0,
+            U_t=pair_data.U_t, lam=lam, diag_floor=diag_floor, diag_ceil=diag_ceil)
+        return dx_cam, back_substitute(B, Vinv_pts, dx_cam, plans), cg_iters, ok
+
+    # the diagonal of T is band slot (offset 0, c): a plain slice
+    diag_S = Ul - blk[:, :C].reshape(dc, dc, C).permute(2, 0, 1)
+    Minv = inv_spd_small(diag_S)
+    matvec = make_banded_matvec(blk, Ul, pairs, dc)
+
+    def apply_minv(r):
+        return torch.einsum("cij,cj->ci", Minv, r)
+
+    dx_cam, cg_iters, ok = pcg(matvec, b, apply_minv, max_iters=cg_max_iters, tol=cg_tol,
+                               x0=cg_x0)
+    return dx_cam, back_substitute(B, Vinv_pts, dx_cam, plans), cg_iters, ok
+
+
+def build_schur_t(*args, **kwargs):
+    raise NotImplementedError(
+        "build_schur_t (the dense T-major reduced system) is not ported yet: ROADMAP queue 1, "
+        "item 7 (dense reduced system)")
+
+
+def solve_schur_dense(*args, **kwargs):
+    raise NotImplementedError(
+        "solve_schur_dense is not ported yet: ROADMAP queue 1, item 7 (dense reduced system)")
