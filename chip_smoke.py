@@ -11,24 +11,50 @@ Phases, one line each (the end-to-end phase a few):
                the median time of kernel and plain version (f32, CUDA events)
                and the least time the card could take (bytes over 3.35 TB/s or
                operations over 67 TFLOP/s, whichever is larger). K1–K3 on the
-               problem's initial parameters; K7, K5, K6 and K4 on that
+               problem's initial parameters; K7, K5, K6, K4 and K8 on that
                linearization's W, V, U and right-hand side and the port's own
-               pair plan, whose shapes are printed and checked;
-  4. solve   — the ladybug-1723 ring stand-in at the golden's config (80 LM
+               pair plan, whose shapes are printed and checked. K8 (the PCG
+               kernel with Ul and the preconditioner given) in its
+               block-tridiagonal form at λ = 1 and at the smallest λ of a
+               short list where the tridiagonal part of S is positive
+               definite, in its block-Jacobi form against K4 on the same
+               system, and on an indefinite preconditioner, where kernel and
+               plain version must freeze alike;
+  4. left    — a trafalgar-257 ring with loop closures at random camera pairs,
+               whose band is capped at 32 offsets: the off-band leftover
+               segments through K4 and K8 against the host loop over
+               make_banded_matvec, and five LM iterations through solve();
+  5. solve   — the ladybug-1723 ring stand-in at the golden's config (80 LM
                iterations, CG 100 at 1e-4, λ₀ 1e-4), f32, through
                solve(problem, LMConfig(linear_solver=...)) for
-               "schur_pcg_pallas" (K1–K3) and for "schur_sparse_pallas"
-               (K1–K7, the reference's main path; solved twice, and the repeat
-               must give the same cost and CG total): final cost within 1% of
-               data/goldens/ladybug-1723.json, every kernel of the path
+               "schur_pcg_pallas" (K1–K3), for "schur_sparse_pallas" (K1–K7,
+               the reference's main path) and for "schur_sparse_pallas" with
+               precond="tridiag" (K8 in place of K4), each solved twice (the
+               repeat must give the same cost and CG total): final cost within
+               1% of data/goldens/ladybug-1723.json, every kernel of the path
                launched by that solve, no per-CG-iteration host read on the
-               sparse path; then 5 iterations each of Huber, Cauchy and arctan,
-               whose cost must not rise.
+               sparse paths; then 5 iterations each of Huber, Cauchy and
+               arctan, whose cost must not rise;
+  6. tiers   — heavy tracks (ladybug-49, max_degree=3) and the dense tiers
+               (a 10-camera synthetic problem) on the card, each step against
+               schur_sparse's in f64 (1e-8), and the dense tiers through
+               solve() in f32;
+  7. huber   — the trafalgar-257 ring stand-in at its golden's config (Huber
+               at scale 1, 60 iterations) through "schur_sparse_pallas":
+               final cost within 1% of data/goldens/trafalgar-257.json;
+  8. venice  — venice-1778 with community covisibility (1,778 cameras,
+               993,923 points, 5,001,946 observations) at its golden's
+               config: the plan is not banded, K1 and K7 against their plain
+               versions at this problem's shapes, then two solves through
+               "schur_sparse_pallas": final cost within 1% of
+               data/goldens/venice-1778-community.json, K7, K1, K2, K3
+               launched and K4–K6, K8 not, the same cost and CG total on the
+               repeat. Needs about 10 GB of device memory.
 Then one JSON line of per-kernel results, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failure raises and exits non-zero; so does a machine without CUDA and a
-directory without the package. The first run generates the problem into
+directory without the package. The first run generates the problems into
 data/cache/ (git-ignored) and the kernels into build/ (git-ignored).
 """
 
@@ -76,10 +102,18 @@ ROBUST_SCALE = 2.0
 #      converged, the true residual ‖b − Sx‖/‖b‖ in f64 within twice the
 #      tolerance (the f32 recurrence drifts from the true residual); at
 #      λ = 1 it must converge.
+#   K8 with the tridiagonal preconditioner as K4: 5 fixed iterations against
+#      the plain version in f64 on the same f32 operands (factors included),
+#      1e-4 or ten times the plain f32 version's error; run to the golden's
+#      tolerance, iterations within max(3, 20%) of the plain run (the
+#      reference's own criterion for its kernel) and the true residual in f64
+#      within ten times the tolerance. With M⁻¹ given it solves K4's system
+#      with an M⁻¹ from another elimination order: the same iteration count,
+#      x to 1e-5 of max|x|.
 # The plain version run in f32 has errors of the same size; its error is
 # printed beside the kernel's.
 TOL = {"segsum": 1e-5, "linearize": 5e-3, "cost": 1e-5, "pcg_band": 1e-4,
-       "trackband": 1e-5, "slotband": 1e-5, "pairblocks": 1e-5}
+       "trackband": 1e-5, "slotband": 1e-5, "pairblocks": 1e-5, "pcg_band_given": 1e-4}
 TOL_LINEARIZE_NO_LOSS = 1e-4
 BAND_PLAIN_FACTOR = 10.0
 REPLACES = {
@@ -90,6 +124,7 @@ REPLACES = {
     "trackband": "tpu_ba/kernels/trackband.py:131",
     "slotband": "tpu_ba/kernels/slotband.py:142",
     "pairblocks": "tpu_ba/kernels/pairblocks.py:134",
+    "pcg_band_given": "tpu_ba/kernels/pcg_band.py:252",
 }
 SOURCES = {
     "segsum": "tpu_ba_torch/csrc/segsum.cu",
@@ -99,11 +134,19 @@ SOURCES = {
     "trackband": "tpu_ba_torch/csrc/trackband.cu",
     "slotband": "tpu_ba_torch/csrc/slotband.cu",
     "pairblocks": "tpu_ba_torch/csrc/pairblocks.cu",
+    "pcg_band_given": "tpu_ba_torch/csrc/pcg_band.cu",
 }
-PATH_KERNELS = {
-    "schur_pcg_pallas": ("segsum", "linearize", "cost"),
-    "schur_sparse_pallas": tuple(TOL),
-}
+BAND_BUILD = ("trackband", "slotband", "pairblocks")
+# the main paths on ladybug-1723: (name, tier, preconditioner, kernels it must launch)
+PATHS = (
+    ("schur_pcg_pallas", "schur_pcg_pallas", "jacobi", ("segsum", "linearize", "cost")),
+    ("schur_sparse_pallas", "schur_sparse_pallas", "jacobi",
+     ("segsum", "linearize", "cost", "pcg_band") + BAND_BUILD),
+    ("tridiag", "schur_sparse_pallas", "tridiag",
+     ("segsum", "linearize", "cost", "pcg_band_given") + BAND_BUILD),
+)
+VENICE_KERNELS = ("segsum", "linearize", "cost", "pairblocks")
+GOLDENS = os.path.join(HERE, "data", "goldens")
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # bytes/s and f32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -166,7 +209,25 @@ def err_rows(out, ref, width):
     return d.max().item(), rel.max().item()
 
 
+def tridiag_is_pd(D, B_up):
+    """Whether the block-tridiagonal matrix with diagonal blocks D (C, n, n)
+    and upper couplings B_up is positive definite: block Cholesky along the
+    chain, in f64 on the host."""
+    import numpy as np
+
+    D = D.double().cpu().numpy()
+    B_up = B_up.double().cpu().numpy()
+    S = D[0]
+    for c in range(D.shape[0]):
+        if c:
+            S = D[c] - B_up[c - 1].T @ np.linalg.solve(S, B_up[c - 1])
+        if np.linalg.eigvalsh(0.5 * (S + S.T)).min() <= 0.0:
+            return False
+    return True
+
+
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -175,8 +236,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     os.chdir(HERE)
-    from tpu_ba_torch.core import LMConfig
+    from tpu_ba_torch.core import LMConfig, make_problem
     from tpu_ba_torch.io.bal import make_bal_like_problem
+    from tpu_ba_torch.io.synthetic import make_synthetic_problem
+    from tpu_ba_torch.jacobians.analytic import jacobian_blocks_bal
     from tpu_ba_torch.kernels import _lib
     from tpu_ba_torch.kernels.linearize import (fused_cost, fused_cost_plain,
                                                 fused_linearize_assemble,
@@ -190,10 +253,13 @@ def main() -> int:
     from tpu_ba_torch.residuals.robust import ROBUST_KINDS
     from tpu_ba_torch.solver import pairs as pairs_mod
     from tpu_ba_torch.solver import pcg as pcg_mod
-    from tpu_ba_torch.solver.lm import solve
-    from tpu_ba_torch.solver.normal import BlockSystem, damp_blocks
+    from tpu_ba_torch.solver.batched_linalg import inv_spd_small
+    from tpu_ba_torch.solver.dense import solve_dense
+    from tpu_ba_torch.solver.lm import build_solver_plans, solve
+    from tpu_ba_torch.solver.normal import BlockSystem, assemble, damp_blocks
     from tpu_ba_torch.solver.plans import build_plans, pt_segsum_t
     from tpu_ba_torch.solver.schur import inv3x3_rows, schur_rhs
+    from tpu_ba_torch.solver.tridiag import pcr_factor, tridiag_from_band
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -355,12 +421,22 @@ def main() -> int:
         plan, seg_start=None, track=dataclasses.replace(tl, key_start=None),
         slot=dataclasses.replace(sl, row_start=None))
 
-    U, gc, W, pt_vals = fused_linearize_assemble(*args32, plans.cam_start)
-    ptp = pt_segsum_t(plans, pt_vals[:12], problem.pt_idx, P)
-    B = BlockSystem(U=U, V=ptp[:9], W=W, gc=gc, gp=ptp[9:12], cost=0.5 * torch.sum(pt_vals[12]),
-                    cam_idx=problem.cam_idx, pt_idx=problem.pt_idx)
-    B64 = B._replace(U=U.double(), V=B.V.double(), W=W.double(), gc=gc.double(),
-                     gp=B.gp.double())
+    def linearize(prob, pl):
+        """The BlockSystem of ``prob`` at its initial parameters, through K2 and K1."""
+        U, gc, W, pt_vals = fused_linearize_assemble(
+            prob.cameras, prob.points, prob.obs_2d, prob.cam_idx, prob.pt_idx, prob.mask,
+            pl.cam_start)
+        ptp = pt_segsum_t(pl, pt_vals[:12], prob.pt_idx, prob.n_points)
+        return BlockSystem(U=U, V=ptp[:9], W=W, gc=gc, gp=ptp[9:12],
+                           cost=0.5 * torch.sum(pt_vals[12]), cam_idx=prob.cam_idx,
+                           pt_idx=prob.pt_idx)
+
+    def f64(Bs):
+        return Bs._replace(U=Bs.U.double(), V=Bs.V.double(), W=Bs.W.double(), gc=Bs.gc.double(),
+                           gp=Bs.gp.double())
+
+    B = linearize(problem, plans)
+    B64 = f64(B)
     pd = pairs_mod.precompute_pair_data(B, plan)
     pd64 = pairs_mod.precompute_pair_data(B64, plan)
     kw = dict(dc=9, diag_floor=cfg_floor, diag_ceil=cfg_ceil)
@@ -524,50 +600,288 @@ def main() -> int:
                   f"for 5, {t_hi:.4f} ms for 55), plain {results['pcg_band']['plain_ms']:.3f} ms, "
                   f"bound {results['pcg_band']['bound_ms']:.4f} ms "
                   f"({results['pcg_band']['bound_by']})")
-    del B, B64, pd, pd64, blk, blk64, U, W, pt_vals, ptp, mv64, Ul64
+    del pd64, blk, blk64, mv64, Ul64
 
-    # 4. the main paths end to end: each with the launch counts set to 0 just
+    # K8 on the same band: Ul, M⁻¹ and the PCR factors as solve_schur_sparse
+    # makes them per retry
+    def given_system(Bs, pl, pdata, pls, lam):
+        lam32 = torch.tensor(lam, device=dev)
+        blk = pairs_mod._compact_blocks(Bs, lam32, pl, pdata, cfg_floor, cfg_ceil)
+        Ul, Vl = damp_blocks(Bs, lam32, cfg_floor, cfg_ceil)
+        rhs = schur_rhs(Bs, inv3x3_rows(Vl), pls).contiguous()
+        n = pl.n_cameras
+        diag_S = Ul - blk[:, :n].reshape(9, 9, n).permute(2, 0, 1)
+        return dict(lam=lam32, blk=blk, Ul=Ul, Minv=inv_spd_small(diag_S), rhs=rhs,
+                    tri=tridiag_from_band(blk, diag_S, pl, 9))
+
+    def check_tridiag_kernel(sysd, pl, what, counter="pcg_band_given"):
+        """K8 with the PCR preconditioner against its plain version: 5 fixed
+        iterations against f64, then to the golden's tolerance."""
+        blk, Ul, rhs, pcr = sysd["blk"], sysd["Ul"], sysd["rhs"], sysd["pcr"]
+        blk64, Ul64, rhs64 = blk.double(), Ul.double(), rhs.double()
+        pcr64 = tuple(t.double() for t in pcr)
+        n = pl.n_cameras
+        x5, k5, ok5 = pcg_banded(blk, Ul, None, rhs, pl, max_iters=5, tol=0.0, tridiag=pcr)
+        x5p, k5p, ok5p = pcg_banded_plain(blk, Ul, None, rhs, pl, max_iters=5, tol=0.0,
+                                          tridiag=pcr)
+        x5r, _, _ = pcg_banded_plain(blk64, Ul64, None, rhs64, pl, max_iters=5, tol=0.0,
+                                     tridiag=pcr64)
+        a, r = err_rows(x5.T.contiguous(), x5r.T.contiguous(), n)
+        _, plain5 = err_rows(x5p.T.contiguous(), x5r.T.contiguous(), n)
+        tol5 = max(TOL[counter], BAND_PLAIN_FACTOR * plain5)
+        if not (int(k5) == int(k5p) == 5 and bool(ok5) and bool(ok5p)):
+            raise AssertionError(f"K8 fixed run, {what}: {int(k5)} / {int(k5p)} iterations, ok "
+                                 f"{bool(ok5)} / {bool(ok5p)}")
+        record(counter, a, r, f"{what}, 5 fixed iterations", tol5)
+        budget = 5 * gmax
+        xg, kg, okg = pcg_banded(blk, Ul, None, rhs, pl, max_iters=budget, tol=gtol, tridiag=pcr)
+        xgp, kgp, okgp = pcg_banded_plain(blk, Ul, None, rhs, pl, max_iters=budget, tol=gtol,
+                                          tridiag=pcr)
+        mv = pairs_mod.make_banded_matvec(blk64, Ul64, pl, 9)
+        true_res = ((rhs64 - mv(xg.double())).norm() / rhs64.norm()).item()
+        true_res_p = ((rhs64 - mv(xgp.double())).norm() / rhs64.norm()).item()
+        kg, kgp, okg, okgp = int(kg), int(kgp), bool(okg), bool(okgp)
+        say("kernel", f"K8 tridiag {what}: 5 fixed iterations, worst column of x rel err {r:.2e} "
+                      f"(plain f32 {plain5:.2e}; tol {tol5:.1e}); at tol {gtol:g}, budget "
+                      f"{budget}: {kg} iterations (plain {kgp}), ok {okg} (plain {okgp}), true "
+                      f"residual in f64 {true_res:.3e} (plain {true_res_p:.3e})")
+        if not (okg and okgp and kg < budget and abs(kg - kgp) <= max(3, 0.2 * kgp)):
+            raise AssertionError(f"K8 tridiag {what}: {kg} iterations ok {okg}, plain {kgp} ok "
+                                 f"{okgp}")
+        if not true_res <= 10 * gtol:
+            raise AssertionError(f"K8 tridiag {what}: true residual {true_res} > {10 * gtol}")
+        return kg
+
+    lam_pd = None
+    for lam in (1e-4, 1e-3, 1e-2, 1e-1, 1.0):
+        sysd = given_system(B, plan, pd, plans, lam)
+        is_pd = tridiag_is_pd(*sysd["tri"])
+        say("kernel", f"the block-tridiagonal part of S at lam {lam:g}: "
+                      f"{'positive definite' if is_pd else 'indefinite'}")
+        if is_pd:
+            lam_pd = lam
+            break
+        sys_indef = sysd
+    if lam_pd is None:
+        raise AssertionError("the tridiagonal part of S is indefinite up to lam 1")
+    k8_iters = {}
+    for lam in sorted({lam_pd, 1.0}):
+        sysd = given_system(B, plan, pd, plans, lam)
+        t0 = time.perf_counter()
+        sysd["pcr"] = pcr_factor(*sysd["tri"])
+        torch.cuda.synchronize()
+        factor_s = time.perf_counter() - t0
+        k8_iters[lam] = check_tridiag_kernel(sysd, plan, f"lam {lam:g}")
+        # the block-Jacobi form against K4 on the same system
+        xj, kj, okj = pcg_banded(sysd["blk"], sysd["Ul"], sysd["Minv"], sysd["rhs"], plan,
+                                 max_iters=5 * gmax, tol=gtol)
+        x4, k4_, ok4 = pcg_banded(sysd["blk"], None, None, sysd["rhs"], plan, max_iters=5 * gmax,
+                                  tol=gtol, U_t=pd.U_t, lam=sysd["lam"], diag_floor=cfg_floor,
+                                  diag_ceil=cfg_ceil)
+        _, rj = err(xj, x4.double())
+        say("kernel", f"K8 block-Jacobi (Ul, M⁻¹ given) lam {lam:g}: {int(kj)} iterations, ok "
+                      f"{bool(okj)}; K4 on the same system {int(k4_)}, ok {bool(ok4)}; x apart by "
+                      f"{rj:.2e} of max|x|{' (limit 1e-5)' if lam == 1.0 else ''}; tridiag took "
+                      f"{k8_iters[lam]}")
+        # the same count and x where CG is stable (λ = 1); at weak damping the
+        # two M⁻¹ round differently and the counts may part by a few
+        slack = 0 if lam == 1.0 else max(3, 0.2 * int(k4_))
+        if not (abs(int(kj) - int(k4_)) <= slack and bool(okj) == bool(ok4)):
+            raise AssertionError(f"K8 block-Jacobi at lam {lam:g}: {int(kj)} iterations ok "
+                                 f"{bool(okj)}, K4 {int(k4_)} ok {bool(ok4)}")
+        if lam == 1.0:
+            record("pcg_band_given", 0.0, rj, "block-Jacobi form against K4, lam 1", 1e-5)
+    # an indefinite preconditioner: −D⁻¹ in the last PCR step breaks down at
+    # the first step; the weakly damped system itself, where it is indefinite
+    P_, Q_, D_ = sysd["pcr"]
+    x0 = torch.randn(sysd["rhs"].shape, generator=gen, device=dev)
+    bkw = dict(max_iters=gmax, tol=gtol, x0=x0, tridiag=(P_, Q_, -D_))
+    xb, kb, okb = pcg_banded(sysd["blk"], sysd["Ul"], None, sysd["rhs"], plan, **bkw)
+    xbp, kbp, okbp = pcg_banded_plain(sysd["blk"], sysd["Ul"], None, sysd["rhs"], plan, **bkw)
+    if not (not bool(okb) and not bool(okbp) and int(kb) == int(kbp) == 1
+            and torch.equal(xb, x0) and torch.equal(xbp, x0)):
+        raise AssertionError(f"K8 on a negated preconditioner: {int(kb)} iterations ok "
+                             f"{bool(okb)}, plain {int(kbp)} ok {bool(okbp)}, x frozen "
+                             f"{torch.equal(xb, x0)}")
+    line = "K8 on a negated preconditioner: ok False after 1 iteration, x frozen, plain alike"
+    if lam_pd > 1e-4:
+        sys_indef["pcr"] = pcr_factor(*sys_indef["tri"])
+        ikw = dict(max_iters=gmax, tol=gtol, tridiag=sys_indef["pcr"])
+        _, ki, oki = pcg_banded(sys_indef["blk"], sys_indef["Ul"], None, sys_indef["rhs"], plan,
+                                **ikw)
+        _, kip, okip = pcg_banded_plain(sys_indef["blk"], sys_indef["Ul"], None,
+                                        sys_indef["rhs"], plan, **ikw)
+        line += (f"; at lam {float(sys_indef['lam']):g} (indefinite tridiagonal part): kernel "
+                 f"{int(ki)} iterations ok {bool(oki)}, plain {int(kip)} ok {bool(okip)}")
+        if bool(oki) != bool(okip):
+            raise AssertionError(line)
+        del sys_indef
+    say("kernel", line)
+
+    # K8's times at λ = 1 with the golden's budget, as path A calls it
+    def k8_call(**kw):
+        return pcg_banded(sysd["blk"], sysd["Ul"], None, sysd["rhs"], plan, tridiag=sysd["pcr"],
+                          **kw)
+
+    t_lo = median_ms(torch, lambda: k8_call(max_iters=5, tol=0.0))
+    t_hi = median_ms(torch, lambda: k8_call(max_iters=55, tol=0.0))
+    k8_per_iter = (t_hi - t_lo) / 50.0
+    kt8 = int(k8_call(max_iters=gmax, tol=gtol)[1])
+    res8 = results["pcg_band_given"]
+    res8["ms"] = median_ms(torch, lambda: k8_call(max_iters=gmax, tol=gtol))
+    reads0 = pcg_mod.host_reads["cg"]
+    res8["plain_ms"] = median_ms(
+        torch, lambda: pcg_banded_plain(sysd["blk"], sysd["Ul"], None, sysd["rhs"], plan,
+                                        max_iters=gmax, tol=gtol, tridiag=sysd["pcr"]),
+        reps=3, warmup=1)
+    pcg_mod.host_reads["cg"] = reads0
+    factor_ms = median_ms(torch, lambda: pcr_factor(*sysd["tri"]), reps=5, warmup=1)
+    levels = int(sysd["pcr"][0].shape[0])
+    # the band, Ul, P, Q, D⁻¹ (as given: (C, 9, 9) blocks), b and x0 read once,
+    # x written once; per iteration K4's products and, per PCR level, two 9×9
+    # products a camera, then the last block diagonal
+    set_bound("pcg_band_given", 4 * (81 * plan.k_band + 81 * C * (2 + 2 * levels) + 3 * 9 * C + 1),
+              (kt8 + 1) * (162 * (cells + C) + 162 * C * (2 * levels + 1) + 12 * 9 * C))
+    res8["iterations"] = kt8
+    res8["ms_per_cg_iteration"] = k8_per_iter
+    res8["pcr_levels"] = levels
+    res8["pcr_factor_ms"] = factor_ms
+    say("kernel", f"K8 pcg_band tridiag lam 1, tol {gtol:g}, budget {gmax}: {res8['ms']:.4f} ms for "
+                  f"{kt8} iterations ({levels} PCR levels; K4 took {kt} on the same system), "
+                  f"{k8_per_iter:.5f} ms a CG iteration ({t_lo:.4f} ms for 5, {t_hi:.4f} ms for "
+                  f"55; K4 {per_iter_ms:.5f}), plain {res8['plain_ms']:.3f} ms, bound "
+                  f"{res8['bound_ms']:.4f} ms ({res8['bound_by']}); PCG working set "
+                  f"{band_l2_bytes(plan, 9, levels) / 2**20:.2f} MiB; pcr_factor "
+                  f"{factor_ms:.3f} ms a call between CUDA events (about a thousand small ops "
+                  f"launched from the host), {factor_s:.4f} s on the host's clock the first time")
+    del B, B64, pd, sysd
+
+    # 4. off-band leftovers: a ring whose band is capped at 32 offsets
+    base, _ = make_bal_like_problem("trafalgar-257", dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(0)
+    n_base, n_close = base.n_obs, 120
+    close_pt = rng.choice(base.n_points, n_close, replace=False)
+    close_cam = rng.integers(0, base.n_cameras, n_close)
+    lp = make_problem(
+        base.cameras.numpy(), base.points.numpy(),
+        np.concatenate([base.obs_2d.numpy()[:n_base], np.zeros((n_close, 2), np.float32)]),
+        np.concatenate([base.cam_idx.numpy()[:n_base], close_cam]),
+        np.concatenate([base.pt_idx.numpy()[:n_base], close_pt]), device=dev)
+    lplans = build_plans(lp.cam_idx, lp.pt_idx, lp.n_cameras, lp.n_points)
+    lplan = pairs_mod.build_pair_plan(lp.cam_idx, lp.pt_idx, lp.n_obs, lp.n_cameras, lp.n_points,
+                                      with_kernel_plans=True, symmetric=True)
+    n_left = lplan.n_segments - lplan.k_band
+    say("left", f"trafalgar-257 ring with {n_close} loop closures: {len(lplan.band_offsets)} band "
+                f"offsets, k_band {lplan.k_band}, {n_left} off-band leftover segments")
+    if not (lplan.banded and n_left > 0 and lplan.left is not None
+            and lplan.band_offsets[1] == 1):
+        raise AssertionError("the loop-closure problem's plan keeps no off-band leftovers")
+    LB = linearize(lp, lplans)
+    lpd = pairs_mod.precompute_pair_data(LB, lplan)
+    lsys = given_system(LB, lplan, lpd, lplans, 1.0)
+    lsys["pcr"] = pcr_factor(*lsys["tri"])
+    check_tridiag_kernel(lsys, lplan, "with leftovers, lam 1")
+    lkw = dict(U_t=lpd.U_t, lam=lsys["lam"], diag_floor=cfg_floor, diag_ceil=cfg_ceil)
+    lkw64 = dict(lkw, U_t=lpd.U_t.double(), lam=lsys["lam"].double())
+    lblk, lrhs = lsys["blk"], lsys["rhs"]
+    x5, k5, ok5 = pcg_banded(lblk, None, None, lrhs, lplan, max_iters=5, tol=0.0, **lkw)
+    x5p, _, _ = pcg_banded_plain(lblk, None, None, lrhs, lplan, max_iters=5, tol=0.0, **lkw)
+    x5r, _, _ = pcg_banded_plain(lblk.double(), None, None, lrhs.double(), lplan, max_iters=5,
+                                 tol=0.0, **lkw64)
+    band_only = dataclasses.replace(lplan, n_segments=lplan.k_band, left=None)
+    x5n, _, _ = pcg_banded_plain(lblk.double(), None, None, lrhs.double(), band_only, max_iters=5,
+                                 tol=0.0, **lkw64)
+    a, r = err_rows(x5.T.contiguous(), x5r.T.contiguous(), lp.n_cameras)
+    _, plain5 = err_rows(x5p.T.contiguous(), x5r.T.contiguous(), lp.n_cameras)
+    _, effect = err_rows(x5n.T.contiguous(), x5r.T.contiguous(), lp.n_cameras)
+    tol5 = max(TOL["pcg_band"], BAND_PLAIN_FACTOR * plain5)
+    record("pcg_band", a, r, "with leftovers, lam 1, 5 fixed iterations", tol5)
+    xg, kg, okg = pcg_banded(lblk, None, None, lrhs, lplan, max_iters=5 * gmax, tol=gtol, **lkw)
+    _, kgp, okgp = pcg_banded_plain(lblk, None, None, lrhs, lplan, max_iters=5 * gmax, tol=gtol,
+                                    **lkw)
+    say("left", f"K4 with leftovers, lam 1: 5 fixed iterations, worst column of x rel err {r:.2e} "
+                f"(plain f32 {plain5:.2e}; tol {tol5:.1e}; leaving the leftovers out moves x by "
+                f"{effect:.2e}); at tol {gtol:g}: {int(kg)} iterations ok {bool(okg)} (plain "
+                f"{int(kgp)} ok {bool(okgp)})")
+    if not (bool(okg) and bool(okgp) and abs(int(kg) - int(kgp)) <= max(3, 0.2 * int(kgp))
+            and effect > 10 * r):
+        raise AssertionError("K4 with leftovers disagrees with the host loop, or the leftovers "
+                             "do not matter on this problem")
+    for precond, counter in (("jacobi", "pcg_band"), ("tridiag", "pcg_band_given")):
+        pcg_mod.reset_host_reads()
+        _lib.reset_launches()
+        lres = solve(lp, LMConfig(linear_solver="schur_sparse_pallas", precond=precond,
+                                  **dict(golden_cfg, max_iters=5)))
+        hist = [lres.initial_cost.item()] + lres.cost_history.tolist()
+        say("left", f"solve, precond {precond}: cost {hist[0]:.6g} -> {lres.cost.item():.6g} in "
+                    f"{int(lres.iterations)} iterations, cg {lres.cg_history.tolist()}, "
+                    f"{_lib.launches[counter]} PCG kernel launches, host reads "
+                    f"{dict(pcg_mod.host_reads)}")
+        if not (_lib.launches[counter] == 5 and pcg_mod.host_reads["cg"] == 0
+                and all(math.isfinite(v) for v in hist)
+                and all(b <= a for a, b in zip(hist, hist[1:]))):
+            raise AssertionError(f"solve over a band with leftovers, precond {precond}: {hist}, "
+                                 f"launches {_lib.launches}, reads {pcg_mod.host_reads}")
+    del lp, LB, lpd, lsys, lblk, lrhs, base
+
+    # 5. the main paths end to end: each with the launch counts set to 0 just
     # before its solve and read just after
-    path_launches = {}
-    for tier, kernels in PATH_KERNELS.items():
-        cfg = LMConfig(linear_solver=tier, **golden_cfg)
+    def run_path(prob, name, cfg, kernels, gold, sparse_path):
+        """Solve twice; hold parity, launches, repeatability. Returns the
+        launch counts of the first solve and a few figures."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         pcg_mod.reset_host_reads()
         _lib.reset_launches()
         t0 = time.perf_counter()
-        res = solve(problem, cfg)
+        res = solve(prob, cfg)
         final = res.cost.item()
         first_s = time.perf_counter() - t0
         launches = dict(_lib.launches)
         reads = dict(pcg_mod.host_reads)
         peak = torch.cuda.max_memory_allocated()
-        path_launches[tier] = launches
         missing = [k for k in kernels if launches[k] == 0]
-        if missing:
-            raise AssertionError(f"{tier}: kernels not launched by the solve: {missing}")
+        extra = [k for k in launches if launches[k] and k not in kernels]
+        if missing or extra:
+            raise AssertionError(f"{name}: kernels of the path not launched by the solve: "
+                                 f"{missing}; launched and not of the path: {extra}")
         t0 = time.perf_counter()
-        res2 = solve(problem, cfg)
+        res2 = solve(prob, cfg)
         final2 = res2.cost.item()
         steady_s = time.perf_counter() - t0
         iters = int(res2.iterations)
         cg_total, cg_total2 = int(res.cg_history.sum()), int(res2.cg_history.sum())
-        gap = (final - golden["final_cost"]) / golden["final_cost"]
-        say("solve", f"{PROBLEM} {tier} f32: {int(res.iterations)} LM iterations "
-                     f"({int(res.accepted)} accepted), cg_total {cg_total}; "
-                     f"first call {first_s:.3f} s, steady state {steady_s:.3f} s = "
+        gap = (final - gold["final_cost"]) / gold["final_cost"]
+        say("solve", f"{name} f32: {int(res.iterations)} LM iterations "
+                     f"({int(res.accepted)} accepted, converged {bool(res.converged)}), cg_total "
+                     f"{cg_total}; first call {first_s:.3f} s, steady state {steady_s:.3f} s = "
                      f"{iters / steady_s:.3f} LM it/s")
         say("solve", f"final cost {final:.6f} (repeat {final2:.6f}, cg_total {cg_total2}), "
-                     f"golden {golden['final_cost']:.6f}, gap {100 * gap:+.5f}% (limit 1%); "
+                     f"golden {gold['final_cost']:.6f}, gap {100 * gap:+.5f}% (limit 1%); "
                      f"host reads {reads['cg']} CG + {reads['lm']} LM; peak device memory "
                      f"{peak / 2**20:.1f} MiB; launches {launches}")
         if not (math.isfinite(final) and abs(gap) < 0.01):
-            raise AssertionError(f"final cost {final} is not within 1% of {golden['final_cost']}")
+            raise AssertionError(f"{name}: final cost {final} is not within 1% of "
+                                 f"{gold['final_cost']}")
         if (final2, cg_total2) != (final, cg_total):
-            raise AssertionError(f"{tier}: the repeat gave cost {final2} and cg_total {cg_total2},"
+            raise AssertionError(f"{name}: the repeat gave cost {final2} and cg_total {cg_total2},"
                                  f" the first solve {final} and {cg_total}")
-        if tier == "schur_sparse_pallas" and reads["cg"] != 0:
-            raise AssertionError(f"{tier}: {reads['cg']} per-CG-iteration host reads, expected 0")
+        if sparse_path and reads["cg"] != 0:
+            raise AssertionError(f"{name}: {reads['cg']} per-CG-iteration host reads, expected 0")
+        return launches, dict(lm_it_s=iters / steady_s, cg_total=cg_total, gap_pct=100 * gap,
+                              iterations=iters, peak_mib=peak / 2**20)
+
+    path_launches, path_figures = {}, {}
+    for name, tier, precond, kernels in PATHS:
+        cfg = LMConfig(linear_solver=tier, precond=precond, **golden_cfg)
+        path_launches[name], path_figures[name] = run_path(
+            problem, f"{PROBLEM} {tier} precond {precond}", cfg, kernels, golden,
+            tier == "schur_sparse_pallas")
+    fa, fj = path_figures["tridiag"], path_figures["schur_sparse_pallas"]
+    say("solve", f"path A (tridiag) against the Jacobi solve: cg_total {fa['cg_total']} / "
+                 f"{fj['cg_total']}, {fa['lm_it_s']:.3f} / {fj['lm_it_s']:.3f} LM it/s, "
+                 f"{fa['iterations']} retries with one pcr_factor each "
+                 f"({results['pcg_band_given']['pcr_factor_ms']:.3f} ms between CUDA events)")
 
     for rname in ("huber", "cauchy", "arctan"):
         rcfg = LMConfig(**dict(golden_cfg, max_iters=5), linear_solver="schur_pcg_pallas",
@@ -582,14 +896,173 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"{rname}: cost not finite or rising: {c0} -> {hist}")
 
+    del problem, plans, plan, plain_plan
+
+    # 6. heavy tracks and the dense tiers on the card: each linear step against
+    # schur_sparse's on the same system in f64 (plain PyTorch on the card)
+    skw = dict(cg_max_iters=500, cg_tol=1e-12, diag_floor=cfg_floor, diag_ceil=cfg_ceil)
+    lam64 = torch.tensor(1.0, dtype=torch.float64, device=dev)
+
+    def system64(prob):
+        r, Jc, Jp = jacobian_blocks_bal(prob.cameras, prob.points, prob.obs_2d, prob.cam_idx,
+                                        prob.pt_idx, prob.mask)
+        return assemble(r, Jc, Jp, prob.cam_idx, prob.pt_idx, prob.n_cameras, prob.n_points,
+                        mask=prob.mask)
+
+    def pair_plan(prob, **kw):
+        return pairs_mod.build_pair_plan(prob.cam_idx, prob.pt_idx, prob.n_obs, prob.n_cameras,
+                                         prob.n_points, **kw)
+
+    def step_err(out, ref, what):
+        worst = max(err(out[i], ref[i])[1] for i in (0, 1))
+        say("tiers", f"{what}: step against schur_sparse in f64 {worst:.2e} of max|step| "
+                     f"(limit 1e-8), {int(out[2])} CG iterations")
+        if not (bool(out[3]) and worst <= 1e-8):
+            raise AssertionError(f"{what}: step {worst} from schur_sparse's, ok {bool(out[3])}")
+
+    p49, _ = make_bal_like_problem("ladybug-49", dtype=torch.float64, device=dev)
+    B49 = system64(p49)
+    ref49 = pairs_mod.solve_schur_sparse(B49, lam64, pair_plan(p49, symmetric=True), **skw)
+    for banded in (True, False):
+        hplan = pair_plan(p49, symmetric=True, max_degree=3, banded=banded)
+        if not (hplan.n_heavy_pts > 0 and hplan.banded == banded):
+            raise AssertionError(f"ladybug-49 with max_degree=3: {hplan.n_heavy_pts} heavy "
+                                 f"points, banded {hplan.banded}")
+        step_err(pairs_mod.solve_schur_sparse(B49, lam64, hplan, **skw), ref49,
+                 f"heavy tracks ({hplan.n_heavy_pts} heavy points, "
+                 f"{'banded' if banded else 'non-banded'} plan)")
+    del p49, B49, ref49
+    ps64, _ = make_synthetic_problem(10, 100, obs_per_point=4, seed=11, dtype=torch.float64,
+                                     device=dev)
+    Bs = system64(ps64)
+    refs = pairs_mod.solve_schur_sparse(Bs, lam64, pair_plan(ps64, symmetric=True), **skw)
+    step_err(pairs_mod.solve_schur_dense(Bs, lam64, pair_plan(ps64, symmetric=False), **skw),
+             refs, "schur_dense (T-major reduced system)")
+    dxc, dxp = solve_dense(Bs, lam64, cfg_floor, cfg_ceil)
+    step_err((dxc, dxp, 0, torch.ones((), dtype=torch.bool)), refs, "dense (full H)")
+    ps32, _ = make_synthetic_problem(10, 100, obs_per_point=4, seed=11, device=dev)
+    tcfg = dict(max_iters=6, init_lambda=10.0)
+    want = solve(ps32, LMConfig(linear_solver="schur_sparse", **tcfg)).cost.item()
+    for tier in ("schur_dense", "schur_dense_pallas", "dense"):
+        got = solve(ps32, LMConfig(linear_solver=tier, **tcfg)).cost.item()
+        say("tiers", f"solve() {tier} f32, 6 iterations: cost {got:.6f} (schur_sparse "
+                     f"{want:.6f})")
+        if not abs(got - want) <= 1e-3 * abs(want):
+            raise AssertionError(f"{tier}: cost {got} against schur_sparse's {want}")
+    del ps64, ps32, Bs, refs
+
+    # 7. Trafalgar-257, Huber, at its golden's config
+    with open(os.path.join(GOLDENS, "trafalgar-257.json")) as fh:
+        tgold = json.load(fh)
+    tp, _ = make_bal_like_problem("trafalgar-257", dtype=torch.float32, device=dev)
+    tcfg = LMConfig(linear_solver="schur_sparse_pallas", max_iters=tgold["max_iters"],
+                    cg_max_iters=tgold["cg_max_iters"], cg_tol=tgold["cg_tol"], init_lambda=1e-4,
+                    robust_kind=ROBUST_KINDS[tgold["robust"]], robust_scale=tgold["robust_scale"])
+    _, tplan = build_solver_plans(tp, tcfg)
+    t_kernels = (("segsum", "linearize", "cost", "pcg_band", "pairblocks")
+                 + (("trackband",) if tplan.track is not None else ())
+                 + (("slotband",) if tplan.slot is not None else ()))
+    t_launches, _ = run_path(tp, f"trafalgar-257 schur_sparse_pallas {tgold['robust']}", tcfg,
+                             t_kernels, tgold, True)
+    del tp
+
+    # 8. path B: venice-1778 with community covisibility, a non-banded plan
+    with open(os.path.join(GOLDENS, "venice-1778-community.json")) as fh:
+        vgold = json.load(fh)
+    t0 = time.perf_counter()
+    vp, _ = make_bal_like_problem("venice-1778", covis="community", dtype=torch.float32,
+                                  device=dev)
+    gen_s = time.perf_counter() - t0
+    vcfg = LMConfig(linear_solver="schur_sparse_pallas", max_iters=vgold["max_iters"],
+                    cg_max_iters=vgold["cg_max_iters"], cg_tol=vgold["cg_tol"], init_lambda=1e-4)
+    t0 = time.perf_counter()
+    vplans, vplan = build_solver_plans(vp, vcfg)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    Cv, Pv, Ov = vp.n_cameras, vp.n_points, vp.obs_2d.shape[0]
+    n_real = int((vplan.pair_key < Cv * Cv).sum())
+    say("venice", f"venice-1778-community: {Cv} cameras, {Pv} points, {vp.n_obs} observations "
+                  f"padded to {Ov}; generated in {gen_s:.1f} s, plans built in {plan_s:.1f} s: "
+                  f"banded {vplan.banded}, {vplan.n_segments} segments (k_pad {vplan.k_pad}), "
+                  f"{n_real} pairs padded to {vplan.n_pairs}, {vplan.n_heavy_pts} heavy points")
+    if (vplan.banded or vplan.track is not None or vplan.slot is not None
+            or vplan.ci_start is None or vplan.cj_start is None):
+        raise AssertionError("the community plan is banded or lacks the compact matvec's starts")
+    # K1 at the compact matvec's shapes: (9, k_pad) by row camera and by column camera
+    kp = vplan.k_pad
+    for keys, starts, side in ((vplan.seg_ci, vplan.ci_start, "seg_ci"),
+                               (vplan.cj_keys, vplan.cj_start, "cj_keys")):
+        vals = torch.randn((9, kp), generator=gen, device=dev)
+        out = sorted_segment_sum_t(vals, keys, Cv + 1, starts)
+        a, r = err(out, sorted_segment_sum_t_plain(vals.double(), keys, Cv + 1))
+        record("segsum", a, r, f"(9,{kp}) by {side}")
+        ms = median_ms(torch, lambda: sorted_segment_sum_t(vals, keys, Cv + 1, starts))
+        pms = median_ms(torch, lambda: sorted_segment_sum_t_plain(vals, keys, Cv + 1))
+        lib_out = torch.empty((9, Cv + 1), device=dev)
+        lib_idx = keys.long().expand(9, kp)
+        lms = median_ms(torch, lambda: lib_out.zero_().scatter_add_(1, lib_idx, vals))
+        b_ms, b_by = bound(4 * (9 * kp + Cv + 2 + 9 * (Cv + 1)), 9 * kp)
+        for key, v in (("ms_venice", ms), ("plain_ms_venice", pms), ("library_ms_venice", lms),
+                       ("bound_ms_venice", b_ms)):
+            results["segsum"][key] = results["segsum"].get(key, 0.0) + v
+        say("venice", f"K1 segsum (9,{kp})->{Cv + 1} by {side}: rel err {r:.2e} (tol "
+                      f"{TOL['segsum']:.0e}); {ms:.4f} ms, plain {pms:.4f} ms, scatter_add_ "
+                      f"{lms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        del vals, out, lib_out, lib_idx
+    # K7 over all pairs, on the first linearization; the f64 plain version in chunks of pairs
+    VB = linearize(vp, vplans)
+    vpd = pairs_mod.precompute_pair_data(VB, vplan)
+    kw7 = dict(dc=9, diag_floor=cfg_floor, diag_ceil=cfg_ceil)
+    for lam in (1e-4, 1.0):
+        lam32 = torch.tensor(lam, device=dev)
+        out = fused_pair_blocks(vpd.packed, vplan.pair_seg, lam32, kp, vplan.seg_start, **kw7)
+        if out[:, -1].abs().max().item() != 0.0:
+            raise AssertionError("K7 wrote into the trash segment of the padding pairs")
+        plain = fused_pair_blocks_plain(vpd.packed, vplan.pair_seg, lam32, kp, **kw7)
+        plain[:, -1] = 0.0
+        ref = torch.zeros((81, kp), dtype=torch.float64, device=dev)
+        step = 1 << 20
+        for a0 in range(0, n_real, step):
+            a1 = min(a0 + step, n_real)
+            ref += fused_pair_blocks_plain(vpd.packed[:, a0:a1].double(), vplan.pair_seg[a0:a1],
+                                           lam32.double(), kp, **kw7)
+        a, r = err_rows(out, ref, kp)
+        _, pr = err_rows(plain, ref, kp)
+        tol = max(1e-5, BAND_PLAIN_FACTOR * pr)
+        record("pairblocks", a, r, f"venice-1778-community, lam {lam:g}", tol)
+        say("venice", f"K7 pairblocks over {n_real} pairs -> (81,{kp}), lam {lam:g}: worst block-"
+                      f"entry row rel err {r:.2e} (plain f32 {pr:.2e}; tol {tol:.1e})")
+        del out, plain, ref
+    lam32 = torch.tensor(1e-4, device=dev)
+    r7 = results["pairblocks"]
+    r7["ms_venice"] = median_ms(torch, lambda: fused_pair_blocks(
+        vpd.packed, vplan.pair_seg, lam32, kp, vplan.seg_start, **kw7), reps=10)
+    r7["plain_ms_venice"] = median_ms(torch, lambda: fused_pair_blocks_plain(
+        vpd.packed, vplan.pair_seg, lam32, kp, **kw7), reps=3, warmup=1)
+    r7["bound_ms_venice"], by7 = bound(4 * (63 * vplan.n_pairs + kp + 2 + 81 * kp),
+                                       n_real * (60 + 135 + 486))
+    say("venice", f"K7 pairblocks at this shape: {r7['ms_venice']:.4f} ms, plain "
+                  f"{r7['plain_ms_venice']:.3f} ms, bound {r7['bound_ms_venice']:.4f} ms ({by7})")
+    del VB, vpd
+    v_launches, v_fig = run_path(vp, "venice-1778-community schur_sparse_pallas", vcfg,
+                                 VENICE_KERNELS, vgold, False)
+    del vp
+
     # max_rel_err is the number held to its tolerance; max_abs_err is in the
     # outputs' own units (K2's U entries reach ~4e11, so its absolute error is
-    # large). launches: by the schur_sparse_pallas solve, the path of all
-    # seven; launches_schur_pcg_pallas: by the matrix-free path's solve.
-    sparse, free = path_launches["schur_sparse_pallas"], path_launches["schur_pcg_pallas"]
+    # large). launches: by the schur_sparse_pallas solve of ladybug-1723, the
+    # path of K1–K7, and for K8 by the same solve with precond="tridiag";
+    # launches_<path>: by each other path's first solve. The *_venice figures
+    # of K1 (both keyed sums of one compact matvec) and K7 are at
+    # venice-1778-community's shapes.
+    sparse = path_launches["schur_sparse_pallas"]
     print(json.dumps({"kernels": [
         dict({"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
-              "launches": sparse[k], "launches_schur_pcg_pallas": free[k]}, **results[k])
+              "launches": (sparse if k != "pcg_band_given" else path_launches["tridiag"])[k],
+              "launches_schur_pcg_pallas": path_launches["schur_pcg_pallas"][k],
+              "launches_tridiag": path_launches["tridiag"][k],
+              "launches_trafalgar_huber": t_launches[k],
+              "launches_venice_community": v_launches[k]}, **results[k])
         for k in TOL]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

@@ -5,13 +5,14 @@
 
 1. Whole solves of the ladybug-1723 ring stand-in at its golden config
    (data/goldens/ladybug-1723.json, f32, λ₀ 1e-4): the sparse-Schur tier
-   with the kernels (``schur_sparse_pallas``) and the two matrix-free tiers
-   taking turns three times after one warm-up solve each, so that the tiers
-   are compared within one process on one card: wall seconds up to the final
+   with the kernels (``schur_sparse_pallas``) under both preconditioners
+   (block-Jacobi: K4; ``tridiag``: K8) and the two matrix-free tiers taking
+   turns three times after one warm-up solve each, so that the tiers are
+   compared within one process on one card: wall seconds up to the final
    cost's device→host read, LM it/s, cg_total, host reads, final cost and
    its gap to the golden.
-2. Ten LM iterations of ``schur_sparse_pallas`` and then of
-   ``schur_pcg_pallas`` under torch.profiler. Device time is summed over the
+2. Ten LM iterations of ``schur_sparse_pallas`` (block-Jacobi, then
+   ``tridiag``) and then of ``schur_pcg_pallas`` under torch.profiler. Device time is summed over the
    kernel and memcpy events only: an aten op's own "self CUDA" time repeats
    the time of the kernels it launched, so a sum over every row counts those
    kernels twice. Printed: the device total, its share of the profiled wall
@@ -24,6 +25,10 @@
    synthetic diagonally dominant bands (random blocks, no problem behind
    them): milliseconds per CG iteration of each, from runs of two fixed
    lengths, and the two results after 5 iterations against each other.
+4. venice-1778 with community covisibility (a non-banded plan, about 10 GB of
+   device memory) at its golden config through ``schur_sparse_pallas``: one
+   warm-up solve, two timed solves, and five LM iterations under the
+   profiler.
 """
 
 import json
@@ -59,36 +64,58 @@ def main() -> int:
         golden = json.load(fh)
     problem, _ = make_bal_like_problem(PROBLEM, dtype=torch.float32, device="cuda")
 
-    def cfg(tier, iters=golden["max_iters"]):
-        return LMConfig(max_iters=iters, cg_max_iters=golden["cg_max_iters"],
-                        cg_tol=golden["cg_tol"], init_lambda=1e-4, linear_solver=tier)
+    def cfg(tier, iters=None, gold=golden):
+        # "tridiag" names the sparse tier with the block-tridiagonal preconditioner
+        precond = "tridiag" if tier == "tridiag" else "jacobi"
+        solver = "schur_sparse_pallas" if tier == "tridiag" else tier
+        return LMConfig(max_iters=gold["max_iters"] if iters is None else iters,
+                        cg_max_iters=gold["cg_max_iters"], cg_tol=gold["cg_tol"],
+                        init_lambda=1e-4, linear_solver=solver, precond=precond)
+
+    def timed_solve(prob, tier, gold, label):
+        torch.cuda.synchronize()
+        pcg_mod.reset_host_reads()
+        t0 = time.perf_counter()
+        res = solve(prob, cfg(tier, gold=gold))
+        cost = res.cost.item()
+        s = time.perf_counter() - t0
+        gap = (cost - gold["final_cost"]) / gold["final_cost"]
+        print(f"[solve] {label}: {s} s, {int(res.iterations) / s} LM it/s, "
+              f"cg_total {int(res.cg_history.sum())}, accepted {int(res.accepted)}, "
+              f"host reads {dict(pcg_mod.host_reads)}, cost {cost} (gap {100 * gap:+.5f}%)",
+              flush=True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(f"[device] {smi.stdout.strip()}; torch {torch.__version__}", flush=True)
 
-    tiers = ("schur_sparse_pallas", "schur_pcg_pallas", "schur_pcg")
+    tiers = ("schur_sparse_pallas", "tridiag", "schur_pcg_pallas", "schur_pcg")
     for tier in tiers:
         solve(problem, cfg(tier)).cost.item()
     for rep in range(REPEATS):
         for tier in tiers:
-            torch.cuda.synchronize()
-            pcg_mod.reset_host_reads()
-            t0 = time.perf_counter()
-            res = solve(problem, cfg(tier))
-            cost = res.cost.item()
-            s = time.perf_counter() - t0
-            gap = (cost - golden["final_cost"]) / golden["final_cost"]
-            print(f"[solve] {tier} repeat {rep}: {s} s, {int(res.iterations) / s} LM it/s, "
-                  f"cg_total {int(res.cg_history.sum())}, accepted {int(res.accepted)}, "
-                  f"host reads {dict(pcg_mod.host_reads)}, cost {cost} (gap {100 * gap:+.5f}%)",
-                  flush=True)
+            timed_solve(problem, tier, golden, f"{tier} repeat {rep}")
 
-    for tier in ("schur_sparse_pallas", "schur_pcg_pallas"):
+    for tier in ("schur_sparse_pallas", "tridiag", "schur_pcg_pallas"):
         profile(torch, DeviceType, solve, problem, cfg(tier, PROFILE_ITERS), tier)
     del problem
     for n_cameras, width in BAND_SWEEP:
         band_sweep(torch, n_cameras, width)
+
+    with open(os.path.join("data", "goldens", "venice-1778-community.json")) as fh:
+        vgold = json.load(fh)
+    t0 = time.perf_counter()
+    venice, _ = make_bal_like_problem("venice-1778", covis="community", dtype=torch.float32,
+                                      device="cuda")
+    print(f"[venice] generated in {time.perf_counter() - t0} s", flush=True)
+    t0 = time.perf_counter()
+    solve(venice, cfg("schur_sparse_pallas", gold=vgold)).cost.item()
+    print(f"[venice] first solve, plans included: {time.perf_counter() - t0} s; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20} MiB", flush=True)
+    for rep in range(2):
+        timed_solve(venice, "schur_sparse_pallas", vgold, f"venice-1778-community repeat {rep}")
+    profile(torch, DeviceType, solve, venice, cfg("schur_sparse_pallas", 5, vgold),
+            "venice-1778-community schur_sparse_pallas")
     return 0
 
 

@@ -22,11 +22,14 @@ is larger.
 Pallas kernels on the CPU.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from tpu_ba_torch.core import LMConfig, make_problem
+from tpu_ba_torch.io.bal import make_bal_like_problem
 from tpu_ba_torch.io.synthetic import make_synthetic_problem
 from tpu_ba_torch.jacobians.analytic import jacobian_blocks_bal
 from tpu_ba_torch.kernels import _lib
@@ -41,10 +44,12 @@ from tpu_ba_torch.kernels.trackband import fused_track_blocks, fused_track_block
 from tpu_ba_torch.solver import pairs as pairs_mod
 from tpu_ba_torch.solver import pcg as pcg_mod
 from tpu_ba_torch.solver import slots as slots_mod
-from tpu_ba_torch.solver.lm import solve
+from tpu_ba_torch.solver.batched_linalg import inv_spd_small
+from tpu_ba_torch.solver.lm import build_solver_plans, solve
 from tpu_ba_torch.solver.normal import assemble, damp_blocks
 from tpu_ba_torch.solver.plans import build_plans
 from tpu_ba_torch.solver.schur import inv3x3_rows, schur_rhs
+from tpu_ba_torch.solver.tridiag import pcr_factor, tridiag_from_band
 
 pytestmark = pytest.mark.cuda
 
@@ -366,32 +371,6 @@ def test_slot_kernel_adds_into_the_band_it_is_given(dev):
                          **BAND_KW)
 
 
-def test_offband_leftovers_on_the_card_raise_unless_the_host_loop_is_asked_for(dev):
-    """A capped band with leftover segments: the PCG kernel does not apply
-    them, so asking for it raises; nothing gives way to the host loop. With
-    ``pcg_kernel=False`` the host loop runs over the kernel-built blocks and
-    gives the δ of the same solve on the CPU."""
-    B, plan = _band_system(dev, "leftover")
-    assert plan.banded and len(plan.band_offsets) == 32 and plan.n_segments > plan.k_band
-    lam = torch.tensor(1.0, device=dev)
-    kw = dict(cg_max_iters=200, cg_tol=1e-6, diag_floor=FLOOR, diag_ceil=CEIL)
-    _lib.reset_launches()
-    for ask in (None, True):
-        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-            pairs_mod.solve_schur_sparse(B, lam, plan, pcg_kernel=ask, **kw)
-    assert not any(_lib.launches.values())
-    dxc, dxp, _, ok = pairs_mod.solve_schur_sparse(B, lam, plan, pcg_kernel=False, **kw)
-    assert _lib.launches["pairblocks"] == 1 and _lib.launches["pcg_band"] == 0
-    Bc = type(B)(*[f.cpu() if isinstance(f, torch.Tensor) else f for f in B])
-    plan_c = pairs_mod.build_pair_plan(Bc.cam_idx, Bc.pt_idx, int((Bc.W.abs().sum(0) > 0).sum()),
-                                       plan.n_cameras, Bc.V.shape[1], symmetric=True,
-                                       pad_multiple=16, device="cpu")
-    rc, rp, _, rok = pairs_mod.solve_schur_sparse(Bc, lam.cpu(), plan_c, **kw)
-    assert bool(ok) and bool(rok)
-    assert _rel_err(dxc, rc.double().to(dev)) <= 1e-3
-    assert _rel_err(dxp, rp.double().to(dev)) <= 1e-3
-
-
 def _pcg_inputs(dev, case, lam=1.0, **plan_kw):
     B, plan = _band_system(dev, case, **plan_kw)
     assert plan.banded and plan.n_segments <= plan.k_band
@@ -489,8 +468,14 @@ def test_sparse_wrappers_refuse_what_the_kernels_do_not_take(dev):
                    U_t=pd.U_t, lam=lam)
     with pytest.raises(TypeError):          # λ as a host float
         pcg_banded(blk, None, None, b, plan, max_iters=5, tol=1e-4, U_t=pd.U_t, lam=1e-2)
-    with pytest.raises(NotImplementedError, match="K8"):
-        pcg_banded(blk, pd.U_t, pd.U_t, b, plan, max_iters=5, tol=1e-4)
+    with pytest.raises(ValueError, match="block-Jacobi only"):   # fold-damp with tridiag
+        pcg_banded(blk, None, None, b, plan, max_iters=5, tol=1e-4, U_t=pd.U_t, lam=lam,
+                   tridiag=(blk, blk, blk))
+    with pytest.raises(ValueError):         # Ul given with neither Minv nor tridiag
+        pcg_banded(blk, B.U, None, b, plan, max_iters=5, tol=1e-4)
+    with pytest.raises(TypeError):          # f64 factors
+        pcg_banded(blk, B.U, None, b, plan, max_iters=5, tol=1e-4,
+                   tridiag=tuple(t.double() for t in pcr_factor(B.U, B.U)))
     assert _lib.launches == before
     # f64 on the card through the tier: refused, not run in plain PyTorch
     p64, _ = make_synthetic_problem(10, 100, obs_per_point=4, seed=11, device=dev,
@@ -525,3 +510,235 @@ def test_sparse_solve_on_the_card_matches_the_plain_versions(dev):
     assert torch.equal(again.cg_history, res.cg_history)
     plain = solve(p_dev, LMConfig(max_iters=6, init_lambda=10.0, linear_solver="schur_sparse"))
     np.testing.assert_allclose(plain.cost.item(), res.cost.item(), rtol=5e-4)
+
+
+# ---- K8: the PCG kernel with Ul and the preconditioner given ----
+
+def _given_inputs(dev, case, lam=1.0, **plan_kw):
+    """The operands of the non-fold-damp forms, as solve_schur_sparse makes
+    them: blk, Ul, the block-Jacobi M⁻¹, the PCR factors, b."""
+    B, plan = _band_system(dev, case, **plan_kw)
+    C = plan.n_cameras
+    pd = pairs_mod.precompute_pair_data(B, plan)
+    lam = torch.tensor(lam, device=dev)
+    blk = pairs_mod._compact_blocks(B, lam, plan, pd, FLOOR, CEIL)
+    Ul, Vl = damp_blocks(B, lam, FLOOR, CEIL)
+    b = schur_rhs(B, inv3x3_rows(Vl)).contiguous()
+    diag_S = Ul - blk[:, :C].reshape(9, 9, C).permute(2, 0, 1)
+    Minv = inv_spd_small(diag_S)
+    pcr = None
+    if len(plan.band_offsets) > 1 and plan.band_offsets[1] == 1:
+        pcr = pcr_factor(*tridiag_from_band(blk, diag_S, plan, 9))
+    return dict(plan=plan, blk=blk, Ul=Ul, Minv=Minv, pcr=pcr, b=b, U_t=pd.U_t, lam=lam)
+
+
+def _f64_args(s, tridiag):
+    pcr = tuple(t.double() for t in s["pcr"]) if tridiag else None
+    return (s["blk"].double(), s["Ul"].double(), s["Minv"].double(), s["b"].double(),
+            s["plan"]), pcr
+
+
+@pytest.mark.parametrize("case,plan_kw", [("ring", {}), ("gappy", dict(slots=True)),
+                                          ("long", {}), ("leftover", {})],
+                         ids=["ring_wraparound", "gappy", "more_groups_than_blocks",
+                              "leftovers"])
+def test_pcg_kernel_with_given_blocks_matches_fold_damp_and_plain(dev, case, plan_kw):
+    """K8 with the block-Jacobi M⁻¹ given: the system K4 solves, so the same
+    iteration count and x to 1e-5 (M⁻¹ comes from another elimination order);
+    and the plain version on the same operands."""
+    s = _given_inputs(dev, case, **plan_kw)
+    plan, blk, b = s["plan"], s["blk"], s["b"]
+    tol = torch.tensor(1e-5, device=dev)
+    before = dict(_lib.launches)
+    reads = pcg_mod.host_reads["cg"]
+    x, k, ok = pcg_banded(blk, s["Ul"], s["Minv"], b, plan, max_iters=300, tol=tol)
+    assert pcg_mod.host_reads["cg"] == reads
+    assert _lib.launches["pcg_band_given"] == before["pcg_band_given"] + 1
+    assert _lib.launches["pcg_band"] == before["pcg_band"]
+    x4, k4, ok4 = pcg_banded(blk, None, None, b, plan, max_iters=300, tol=tol, U_t=s["U_t"],
+                             lam=s["lam"], diag_floor=FLOOR, diag_ceil=CEIL)
+    assert _lib.launches["pcg_band"] == before["pcg_band"] + 1
+    xp, kp, okp = pcg_banded_plain(blk, s["Ul"], s["Minv"], b, plan, max_iters=300, tol=tol)
+    assert bool(ok) and bool(ok4) and bool(okp) and 0 < int(k) < 300
+    assert int(k) == int(k4) and abs(int(k) - int(kp)) <= 2
+    assert _rel_err(x, x4.double()) <= 1e-5
+    assert _rel_err(x, xp.double()) <= 1e-3
+    x2, k2, _ = pcg_banded(blk, s["Ul"], s["Minv"], b, plan, max_iters=300, tol=tol)
+    assert torch.equal(x, x2) and int(k) == int(k2)       # the same bits every run
+    # a fixed number of iterations against the plain version in f64
+    x5, k5, _ = pcg_banded(blk, s["Ul"], s["Minv"], b, plan, max_iters=5, tol=0.0)
+    args64, _ = _f64_args(s, False)
+    x5r, _, _ = pcg_banded_plain(*args64, max_iters=5, tol=0.0)
+    assert int(k5) == 5 and _rel_err(x5, x5r) <= 1e-4
+
+
+@pytest.mark.parametrize("case,plan_kw", [("ring", {}), ("line", {}), ("wide", dict(slots=True)),
+                                          ("long", {}), ("leftover", {})],
+                         ids=["ring_wraparound", "line", "wide_13_blocks",
+                              "more_groups_than_blocks", "leftovers"])
+def test_pcg_kernel_with_tridiag_preconditioner_matches_plain(dev, case, plan_kw):
+    """K8 with the PCR-factored block-tridiagonal preconditioner against its
+    plain version (``pcr_apply`` in the host loop): a fixed number of
+    iterations against f64, then to convergence: iterations within
+    max(3, 20%) of the plain run, the true residual in f64 within ten times
+    the tolerance, the same bits on a second run."""
+    s = _given_inputs(dev, case, **plan_kw)
+    plan, blk, b, pcr = s["plan"], s["blk"], s["b"], s["pcr"]
+    assert pcr is not None and pcr[0].shape[0] == int(np.ceil(np.log2(plan.n_cameras)))
+    (blk64, Ul64, _, b64, _), pcr64 = _f64_args(s, True)
+    kw = dict(tridiag=pcr)
+    before = _lib.launches["pcg_band_given"]
+    reads = pcg_mod.host_reads["cg"]
+    x5, k5, ok5 = pcg_banded(blk, s["Ul"], None, b, plan, max_iters=5, tol=0.0, **kw)
+    assert pcg_mod.host_reads["cg"] == reads and _lib.launches["pcg_band_given"] == before + 1
+    x5p, k5p, ok5p = pcg_banded_plain(blk, s["Ul"], None, b, plan, max_iters=5, tol=0.0, **kw)
+    x5r, _, _ = pcg_banded_plain(blk64, Ul64, None, b64, plan, max_iters=5, tol=0.0,
+                                 tridiag=pcr64)
+    assert int(k5) == int(k5p) == 5 and bool(ok5) and bool(ok5p)
+    assert _rel_err(x5, x5r) <= max(1e-4, 10.0 * _rel_err(x5p, x5r))
+    tol = 1e-5
+    x, k, ok = pcg_banded(blk, s["Ul"], None, b, plan, max_iters=300, tol=tol, **kw)
+    xp, kp, okp = pcg_banded_plain(blk, s["Ul"], None, b, plan, max_iters=300, tol=tol, **kw)
+    k, kp = int(k), int(kp)
+    assert bool(ok) and bool(okp) and k < 300 and abs(k - kp) <= max(3, 0.2 * kp), (k, kp)
+    res = b64 - pairs_mod.make_banded_matvec(blk64, Ul64, plan, 9)(x.double())
+    assert res.norm() <= 10 * tol * b64.norm()
+    x2, k2, _ = pcg_banded(blk, s["Ul"], None, b, plan, max_iters=300, tol=tol, **kw)
+    assert torch.equal(x, x2) and k == int(k2)
+    # a warm start that already meets the tolerance takes no iteration
+    x3, k3, ok3 = pcg_banded(blk, s["Ul"], None, b, plan, max_iters=300, tol=1e-3, x0=x, **kw)
+    assert int(k3) == 0 and bool(ok3) and torch.equal(x3, x)
+
+
+def test_pcg_kernel_freezes_on_an_indefinite_preconditioner(dev):
+    """−D⁻¹ in the last PCR step makes M⁻¹ negative definite: r·z ≤ 0 at the
+    first step, so ok is False, one iteration is counted and x stays at x0,
+    in the kernel as in the plain version."""
+    s = _given_inputs(dev, "ring")
+    P, Q, D = s["pcr"]
+    x0 = torch.randn(s["b"].shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(1))
+    kw = dict(max_iters=50, tol=1e-4, x0=x0, tridiag=(P, Q, -D))
+    x, k, ok = pcg_banded(s["blk"], s["Ul"], None, s["b"], s["plan"], **kw)
+    xp, kp, okp = pcg_banded_plain(s["blk"], s["Ul"], None, s["b"], s["plan"], **kw)
+    assert not bool(ok) and not bool(okp) and int(k) == int(kp) == 1
+    assert torch.equal(x, x0) and torch.equal(xp, x0)
+
+
+def test_leftover_segments_go_through_the_pcg_kernels(dev):
+    """A capped band with off-band leftover segments: K4 and K8 apply them in
+    their matvec (each camera walks its own lists), so the sparse solve on the
+    card launches the kernel and gives the δ of the host loop over
+    ``make_banded_matvec``; without the lists the wrapper raises."""
+    B, plan = _band_system(dev, "leftover")
+    assert plan.banded and len(plan.band_offsets) == 32 and plan.n_segments > plan.k_band
+    n_left = plan.n_segments - plan.k_band
+    assert plan.left.row_cj.shape == (n_left,) and plan.left.row_start[-1] == n_left
+    lam = torch.tensor(1.0, device=dev)
+    kw = dict(cg_max_iters=200, cg_tol=1e-6, diag_floor=FLOOR, diag_ceil=CEIL)
+    for precond, counter in (("jacobi", "pcg_band"), ("tridiag", "pcg_band_given")):
+        _lib.reset_launches()
+        pcg_mod.reset_host_reads()
+        dxc, dxp, n_cg, ok = pairs_mod.solve_schur_sparse(B, lam, plan, precond=precond, **kw)
+        assert _lib.launches[counter] == 1 and pcg_mod.host_reads["cg"] == 0
+        hc, hp, hn, hok = pairs_mod.solve_schur_sparse(B, lam, plan, precond=precond,
+                                                       pcg_kernel=False, **kw)
+        assert _lib.launches[counter] == 1 and pcg_mod.host_reads["cg"] > 0
+        assert bool(ok) and bool(hok) and abs(int(n_cg) - hn) <= max(3, 0.2 * hn)
+        assert _rel_err(dxc, hc.double()) <= 1e-3 and _rel_err(dxp, hp.double()) <= 1e-3
+    # dropping the leftovers changes the answer: the lists are really applied
+    bare = dataclasses.replace(plan, n_segments=plan.k_band, left=None)
+    blk = pairs_mod._compact_blocks(B, lam, plan, pairs_mod.precompute_pair_data(B, plan),
+                                    FLOOR, CEIL)
+    pd = pairs_mod.precompute_pair_data(B, plan)
+    pkw = dict(max_iters=200, tol=1e-6, U_t=pd.U_t, lam=lam, diag_floor=FLOOR, diag_ceil=CEIL)
+    x_with, _, _ = pcg_banded(blk, None, None, B.gc.contiguous(), plan, **pkw)
+    x_without, _, _ = pcg_banded(blk, None, None, B.gc.contiguous(), bare, **pkw)
+    assert _rel_err(x_without, x_with.double()) > 1e-3
+    with pytest.raises(ValueError, match="leftover"):
+        pcg_banded(blk, None, None, B.gc.contiguous(), dataclasses.replace(plan, left=None),
+                   **pkw)
+
+
+def test_segsum_kernel_at_the_compact_matvec_shape(dev):
+    """K1 as the non-banded matvec of venice-1778-community calls it: (9,
+    665,600) segment values keyed by camera, 0 … C−1 over the real segments
+    in runs of very uneven length and the trash camera C over the padding
+    tail, into C + 1 sums."""
+    C, k_pad, n_real = 1778, 665600, 664321
+    rng = np.random.default_rng(3)
+    pop = (1.0 + np.arange(C)) ** -0.9
+    keys = np.concatenate([np.sort(rng.choice(C, n_real, p=pop / pop.sum())),
+                           np.full(k_pad - n_real, C)])
+    starts = torch.tensor(np.searchsorted(keys, np.arange(C + 2)).astype(np.int32), device=dev)
+    keys_t = torch.tensor(keys, dtype=torch.int32, device=dev)
+    vals = torch.tensor(rng.standard_normal((9, k_pad)), dtype=torch.float32, device=dev)
+    out = sorted_segment_sum_t(vals, keys_t, C + 1, starts)
+    ref = sorted_segment_sum_t_plain(vals.double(), keys_t, C + 1)
+    assert out.shape == (9, C + 1) and _rel_err(out, ref) <= 1e-5
+    assert torch.equal(out, sorted_segment_sum_t(vals, keys_t, C + 1, starts))
+
+
+def test_tridiag_solve_on_the_card_matches_the_plain_versions(dev):
+    """``precond="tridiag"`` through ``solve``: K8 launched once a retry, no
+    per-CG-iteration host read, the CPU run's trajectory to f32 rounding, and
+    the same cost and CG counts on a second run."""
+    cfg = LMConfig(max_iters=6, init_lambda=10.0, linear_solver="schur_sparse_pallas",
+                   precond="tridiag")
+    p_cpu, _ = make_synthetic_problem(10, 100, obs_per_point=4, seed=11, device="cpu")
+    p_dev, _ = make_synthetic_problem(10, 100, obs_per_point=4, seed=11, device=dev)
+    _lib.reset_launches()
+    pcg_mod.reset_host_reads()
+    res = solve(p_dev, cfg)
+    launched, reads = dict(_lib.launches), dict(pcg_mod.host_reads)
+    ref = solve(p_cpu, cfg)
+    assert _lib.launches == launched
+    assert launched["pcg_band_given"] == 6 and launched["pcg_band"] == 0
+    assert reads == {"cg": 0, "lm": 6}
+    assert int(res.accepted) == int(ref.accepted)
+    np.testing.assert_allclose(res.cost.item(), ref.cost.item(), rtol=5e-4)
+    again = solve(p_dev, cfg)
+    assert again.cost.item() == res.cost.item() and torch.equal(again.cg_history, res.cg_history)
+    jac = solve(p_dev, LMConfig(max_iters=6, init_lambda=10.0,
+                                linear_solver="schur_sparse_pallas"))
+    assert int(res.cg_history.sum()) < int(jac.cg_history.sum())
+
+
+def test_non_banded_heavy_and_dense_tiers_on_the_card(dev, tmp_path, monkeypatch):
+    """The tiers without a PCG kernel, on the card: a community problem
+    (non-banded plan: K7 and K1 launched, K4–K6 and K8 not), a plan with
+    heavy points, the dense tiers; each against the same solve on the CPU."""
+    monkeypatch.chdir(tmp_path)
+    cfg = dict(max_iters=4, init_lambda=10.0)
+    p_dev, _ = make_bal_like_problem("trafalgar-257", covis="community", device=dev)
+    p_cpu, _ = make_bal_like_problem("trafalgar-257", covis="community", device="cpu")
+    _, plan = build_solver_plans(p_dev, LMConfig(linear_solver="schur_sparse_pallas"))
+    assert not plan.banded and plan.ci_start is not None and plan.cj_start is not None
+    _lib.reset_launches()
+    res = solve(p_dev, LMConfig(linear_solver="schur_sparse_pallas", **cfg))
+    launched = dict(_lib.launches)
+    for name in ("segsum", "linearize", "cost", "pairblocks"):
+        assert launched[name] > 0, launched
+    for name in ("pcg_band", "pcg_band_given", "trackband", "slotband"):
+        assert launched[name] == 0, launched
+    ref = solve(p_cpu, LMConfig(linear_solver="schur_sparse_pallas", **cfg))
+    np.testing.assert_allclose(res.cost.item(), ref.cost.item(), rtol=5e-4)
+    s_dev, _ = make_synthetic_problem(10, 100, obs_per_point=4, seed=11, device=dev)
+    s_cpu, _ = make_synthetic_problem(10, 100, obs_per_point=4, seed=11, device="cpu")
+    for tier in ("schur_dense", "schur_dense_pallas", "dense"):
+        a = solve(s_dev, LMConfig(linear_solver=tier, **cfg))
+        b = solve(s_cpu, LMConfig(linear_solver=tier, **cfg))
+        np.testing.assert_allclose(a.cost.item(), b.cost.item(), rtol=5e-4, err_msg=tier)
+    # heavy points: every track of 4 is over max_degree=3, so S is applied matrix-free
+    B, plan = _band_system(dev, "ring", max_degree=3, tracks=False, slots=False)
+    assert plan.n_heavy_pts > 0
+    lam = torch.tensor(1.0, device=dev)
+    kw = dict(cg_max_iters=200, cg_tol=1e-6, diag_floor=FLOOR, diag_ceil=CEIL)
+    dxc, _, _, ok = pairs_mod.solve_schur_sparse(B, lam, plan, **kw)
+    Bc = type(B)(*[f.cpu() if isinstance(f, torch.Tensor) else f for f in B])
+    plan_c = pairs_mod.build_pair_plan(Bc.cam_idx, Bc.pt_idx, int((Bc.W.abs().sum(0) > 0).sum()),
+                                       plan.n_cameras, Bc.V.shape[1], symmetric=True,
+                                       pad_multiple=16, max_degree=3, tracks=False, slots=False,
+                                       device="cpu")
+    rc, _, _, rok = pairs_mod.solve_schur_sparse(Bc, lam.cpu(), plan_c, **kw)
+    assert bool(ok) and bool(rok) and _rel_err(dxc, rc.double().to(dev)) <= 1e-3

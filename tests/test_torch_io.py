@@ -35,6 +35,7 @@ MODULES = [
     "tpu_ba_torch.solver.tracks", "tpu_ba_torch.solver.slots", "tpu_ba_torch.kernels.pcg_band",
     "tpu_ba_torch.kernels.pairblocks", "tpu_ba_torch.kernels.trackband",
     "tpu_ba_torch.kernels.slotband", "tpu_ba_torch.kernels._lib",
+    "tpu_ba_torch.solver.tridiag", "tpu_ba_torch.solver.dense",
 ]
 
 
@@ -69,8 +70,8 @@ def test_bal_like_generator_byte_identical(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path / "ref")
     _assert_identical(make_bal_like_problem("ladybug-49", dtype=torch.float32,
                                             device="cpu")[0], ref)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_bal_like_problem("ladybug-49", covis="community", device="cpu")
+    with pytest.raises(ValueError, match="covis"):
+        make_bal_like_problem("ladybug-49", covis="grid", device="cpu")
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -178,6 +179,22 @@ def test_cli_ba_runs(capsys):
                  "schur_sparse_pallas", "--device", "cpu"]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["solver"] == "schur_sparse_pallas" and out["final_cost"] < out["initial_cost"]
+
+
+@pytest.mark.parametrize("solver,precond", [("schur_sparse_pallas", "tridiag"),
+                                            ("schur_dense", "jacobi"),
+                                            ("schur_dense_pallas", "jacobi"), ("dense", "jacobi")])
+def test_cli_ba_runs_every_tier_and_preconditioner(capsys, solver, precond):
+    from tpu_ba_torch.cli import main
+
+    assert main(["ba", "--problem", "synthetic", "--max-iters", "3", "--solver", solver,
+                 "--precond", precond, "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["solver"] == solver and out["precond"] == precond
+    # f32 at λ₀ = 1e-4: three retries may all break down and be rejected
+    assert out["iterations"] == 3 and out["final_cost"] <= out["initial_cost"]
+    with pytest.raises(SystemExit):
+        main(["ba", "--problem", "synthetic", "--precond", "ilu", "--device", "cpu"])
 
 
 def test_port_imports_no_jax():

@@ -113,10 +113,6 @@ def test_port_resumes_itself(problems):
 
 
 @pytest.mark.parametrize("override,match", [
-    (dict(linear_solver="schur_sparse_pallas", precond="tridiag"), "queue 2"),
-    (dict(linear_solver="schur_dense_pallas"), "item 7"),
-    (dict(linear_solver="schur_dense"), "item 7"),
-    (dict(linear_solver="dense"), "item 7"),
     (dict(checkpoint_every=4, checkpoint_path="ck"), "item 6"),
     (dict(nan_guard=True), "item 6"),
 ])
@@ -130,5 +126,7 @@ def test_unknown_solver_and_model_raise(problems):
     _, p = problems
     with pytest.raises(ValueError):
         solve(p, LMConfig(linear_solver="cholmod"))
+    with pytest.raises(ValueError):
+        solve(p, LMConfig(linear_solver="schur_sparse", precond="ilu"))
     with pytest.raises(ValueError):
         solve(dataclasses.replace(p, model="fisheye"), LMConfig())

@@ -159,7 +159,9 @@ def test_wrapper_on_cpu_is_the_plain_version_and_refuses_other_variants(banded):
     a = pcg_banded(s["blk_t"], None, None, s["b_t"], s["pp"], **kw)
     b = pcg_banded_plain(s["blk_t"], None, None, s["b_t"], s["pp"], **kw)
     assert torch.equal(a[0], b[0]) and a[1] == b[1]
-    with pytest.raises(NotImplementedError, match="K8"):
+    with pytest.raises(ValueError, match="block-Jacobi only"):    # fold-damp with tridiag
+        pcg_banded(s["blk_t"], None, None, s["b_t"], s["pp"], tridiag=(None, None, None), **kw)
+    with pytest.raises(ValueError, match="Minv or tridiag"):      # Ul alone
         pcg_banded(s["blk_t"], s["U_t_t"], None, s["b_t"], s["pp"], max_iters=5, tol=1e-4)
 
 

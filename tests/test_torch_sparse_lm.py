@@ -1,8 +1,10 @@
 """The sparse-Schur tier as a whole: ``solve_schur_sparse`` against the
 reference's and against the port's own matrix-free solve on the same
 BlockSystem; ``solve(...)`` for ``schur_sparse`` and ``schur_sparse_pallas``
-against ``tpu_ba`` in f64; the f64 golden of ladybug-49; and the branches
-that are not ported yet.
+against ``tpu_ba`` in f64; the f64 golden of ladybug-49; and the branch
+that is not ported yet (the sharded solve). The tridiagonal preconditioner,
+non-banded and heavy-point plans and the dense tiers are in
+``test_torch_sparse_tiers.py``.
 
 The slice comparison runs on the synthetic ring of ``test_torch_lm.py`` at
 λ₀ = 10, where CG counts vary (1 to 35) but do not hinge on rounding: there
@@ -19,8 +21,7 @@ import pytest
 import torch
 
 from test_torch_bandblocks import ref_system, system_to_port
-from test_torch_pairs_plan import (CASES, community_problem, gappy_problem, index_maps,
-                                   plan_to_port, ring_problem)
+from test_torch_pairs_plan import CASES, gappy_problem, index_maps, plan_to_port, ring_problem
 from tpu_ba.core import LMConfig as RefLMConfig
 from tpu_ba.io.bal import make_bal_like_problem as ref_bal_like
 from tpu_ba.io.synthetic import make_synthetic_problem as ref_synthetic
@@ -31,7 +32,7 @@ from tpu_ba_torch.io.bal import make_bal_like_problem
 from tpu_ba_torch.kernels import _lib
 from tpu_ba_torch.solver import pairs as port_pairs
 from tpu_ba_torch.solver import pcg as pcg_mod
-from tpu_ba_torch.solver.lm import lm_loop, solve
+from tpu_ba_torch.solver.lm import build_solver_plans, lm_loop, solve
 from tpu_ba_torch.solver.schur import solve_schur_pcg
 
 torch.set_num_threads(1)
@@ -176,18 +177,8 @@ def _sparse_solve(make, plan_kw, **solve_kw):
 
 
 @pytest.mark.parametrize("call,match", [
-    (lambda: _sparse_solve(ring_problem, dict(max_degree=3, tracks=False, slots=False)),
-     "queue 1, item 7"),                                    # heavy points
-    (lambda: _sparse_solve(community_problem, {}), "queue 1, item 7"),     # non-banded plan
-    (lambda: _sparse_solve(ring_problem, {}, precond="tridiag"), "K8"),
     (lambda: _sparse_solve(ring_problem, {}, axis_name="obs"), "queue 1, item 8"),
-    (lambda: port_pairs.build_schur_t(), "queue 1, item 7"),
-    (lambda: port_pairs.solve_schur_dense(), "queue 1, item 7"),
-    (lambda: solve(make_bal_like_problem.__globals__["make_problem"](
-        np.zeros((2, 9)), np.zeros((3, 3)), np.zeros((4, 2)), [0, 0, 1, 1], [0, 1, 1, 2],
-        device="cpu"), LMConfig(linear_solver="schur_sparse", precond="tridiag")), "K8"),
-], ids=["heavy_points", "non_banded_plan", "tridiag_precond", "axis_name", "build_schur_t",
-        "solve_schur_dense", "config_precond"])
+], ids=["axis_name"])
 def test_unported_sparse_branches_raise(call, match):
     with pytest.raises(NotImplementedError, match=match):
         call()
@@ -197,3 +188,68 @@ def test_gappy_problem_plan_is_not_accidentally_trivial():
     plan = port_pairs.build_pair_plan(*index_maps(gappy_problem()), symmetric=True, slots=True,
                                       tracks=False, pad_multiple=16, device="cpu")
     assert plan.slot.n_tracked > 300 and len(plan.slot.degrees) == 1
+
+
+@pytest.fixture(scope="module")
+def community():
+    """The small community problem of ``test_torch_pairs_plan`` (150 cameras,
+    400 points, cameras drawn by popularity with no spatial order), its
+    observations padded to a multiple of 128 as the reference's kernel
+    schedules need."""
+    from test_torch_pairs_plan import community_problem
+    from tpu_ba.core import make_problem as ref_make_problem
+    small = community_problem()
+    n = small.n_obs
+    ref = ref_make_problem(*(np.asarray(a) for a in (small.cameras, small.points,
+                                                     small.obs_2d[:n], small.cam_idx[:n],
+                                                     small.pt_idx[:n])),
+                           dtype=np.float64, pad_multiple=128)
+    port = problem_from_numpy({k: np.asarray(getattr(ref, k)) for k in FIELDS},
+                              n_cameras=ref.cameras.shape[0], n_points=ref.points.shape[0],
+                              n_obs=ref.n_obs, dtype=torch.float64, device="cpu")
+    return ref, port
+
+
+def _assert_same_trajectory(res, ref, n):
+    assert int(res.iterations) == int(ref.iterations) == n
+    assert int(res.accepted) == int(ref.accepted)
+    np.testing.assert_array_equal(res.cg_history.numpy(), np.asarray(ref.cg_history))
+    np.testing.assert_allclose(res.cost_history.numpy(), np.asarray(ref.cost_history), rtol=1e-9)
+    np.testing.assert_allclose(res.lam_history.numpy(), np.asarray(ref.lam_history), rtol=1e-9)
+    np.testing.assert_allclose(float(res.cost), float(ref.cost), rtol=1e-9)
+
+
+@pytest.mark.parametrize("tier,precond", [
+    ("schur_sparse", "tridiag"), ("schur_sparse_pallas", "tridiag"), ("schur_dense", "jacobi"),
+    ("schur_dense_pallas", "jacobi"), ("dense", "jacobi")])
+def test_slice_with_the_remaining_tiers_matches_reference(problems, tier, precond):
+    """``solve()`` with the tridiagonal preconditioner, the dense reduced
+    system and the full-H solve against ``tpu_ba``'s at λ₀ = 10 (8
+    iterations with the tridiagonal preconditioner, where the CG counts
+    spread; 3 on the dense tiers): cost history to 1e-9, equal CG history."""
+    ref_p, p = problems
+    n = 8 if precond == "tridiag" else 3
+    cfg = dict(max_iters=n, init_lambda=10.0, linear_solver=tier, precond=precond)
+    ref = ref_solve(ref_p, RefLMConfig(**cfg))
+    res = solve(p, LMConfig(**cfg))
+    _assert_same_trajectory(res, ref, n)
+    if tier == "dense":
+        assert res.cg_history.tolist() == [0, 0, 0]
+    if precond == "tridiag":
+        assert len(set(res.cg_history.tolist())) > 3      # early stops at varied counts
+
+
+@pytest.mark.parametrize("tier", ["schur_sparse", "schur_sparse_pallas"])
+def test_slice_on_a_community_problem_matches_reference(community, tier):
+    """A non-banded plan through ``solve()``: the generic compact matvec in
+    the host-loop PCG, 2 iterations at λ₀ = 10 against ``tpu_ba``."""
+    ref_p, p = community
+    cfg = dict(max_iters=2, init_lambda=10.0, linear_solver=tier)
+    _, plan = build_solver_plans(p, LMConfig(**cfg))
+    assert not plan.banded and (plan.ci_start is not None) == (tier == "schur_sparse_pallas")
+    ref = ref_solve(ref_p, RefLMConfig(**cfg))
+    _lib.reset_launches()
+    res = solve(p, LMConfig(**cfg))
+    assert not any(_lib.launches.values())
+    _assert_same_trajectory(res, ref, 2)
+    assert pcg_mod.host_reads["cg"] > 0

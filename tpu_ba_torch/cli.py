@@ -26,9 +26,12 @@ def _add_ba(sub):
     p.add_argument("--cg-iters", type=int, default=50)
     p.add_argument("--cg-tol", type=float, default=1e-2)
     p.add_argument("--solver", default="schur_pcg",
-                   choices=["schur_pcg", "schur_pcg_pallas", "schur_sparse",
-                            "schur_sparse_pallas"],
+                   choices=["dense", "schur_pcg", "schur_pcg_pallas", "schur_dense",
+                            "schur_dense_pallas", "schur_sparse", "schur_sparse_pallas"],
                    help="linear solver tier (*_pallas: hand-written kernels)")
+    p.add_argument("--precond", choices=["jacobi", "tridiag"], default="jacobi",
+                   help="PCG preconditioner of the sparse tiers: block-Jacobi, or the "
+                        "PCR-factored block-tridiagonal inverse (banded plans)")
     p.add_argument("--robust", choices=["none", "huber", "cauchy", "arctan"], default="none")
     p.add_argument("--robust-scale", type=float, default=2.0)
     p.add_argument("--device", default=None,
@@ -53,7 +56,7 @@ def cmd_ba(args) -> int:
 
     kwargs = dict(max_iters=args.max_iters, cg_max_iters=args.cg_iters, cg_tol=args.cg_tol,
                   robust_kind=ROBUST_KINDS[args.robust], robust_scale=args.robust_scale,
-                  linear_solver=args.solver)
+                  linear_solver=args.solver, precond=args.precond)
     if args.config:
         with open(args.config) as fh:
             kwargs.update(json.load(fh))  # JSON wins over flags
@@ -64,7 +67,8 @@ def cmd_ba(args) -> int:
     final = float(res.cost)
     wall = time.time() - t0
     print(json.dumps({
-        "problem": args.problem, "solver": cfg.linear_solver, "device": str(problem.device),
+        "problem": args.problem, "solver": cfg.linear_solver, "precond": cfg.precond,
+        "device": str(problem.device),
         "iterations": int(res.iterations), "accepted": int(res.accepted),
         "initial_cost": float(res.initial_cost), "final_cost": final,
         "rmse_px": math.sqrt(2.0 * final / max(n_obs, 1)), "wall_s": wall,

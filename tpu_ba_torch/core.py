@@ -169,11 +169,10 @@ def problem_to_numpy(problem: BAProblem) -> dict:
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     """Levenberg–Marquardt trust-region configuration; the fields and
-    defaults of ``tpu_ba.core.LMConfig``. This package runs the
-    matrix-free tiers (``schur_pcg``, ``schur_pcg_pallas``) and the
-    sparse-Schur tiers (``schur_sparse``, ``schur_sparse_pallas``); ``solve``
-    refuses the others and the options it does not run yet (see
-    ``tpu_ba_torch/solver/lm.py``)."""
+    defaults of ``tpu_ba.core.LMConfig``. This package runs every
+    ``linear_solver`` tier and both preconditioners of the reference;
+    ``solve`` refuses the options it does not run yet (checkpointing,
+    ``nan_guard``; see ``tpu_ba_torch/solver/lm.py``)."""
 
     max_iters: int = 50
     init_lambda: float = 1e-4
@@ -186,8 +185,8 @@ class LMConfig:
     # robustification
     robust_kind: int = ROBUST_NONE
     robust_scale: float = 1.0
-    # inner linear solver: "schur_pcg" / "schur_sparse" (plain torch) or
-    # "schur_pcg_pallas" / "schur_sparse_pallas" (the hand-written kernels)
+    # inner linear solver: "dense", "schur_dense", "schur_pcg", "schur_sparse"
+    # (plain torch) or their "*_pallas" forms (the hand-written kernels)
     linear_solver: str = "schur_pcg"
     cg_max_iters: int = 100
     cg_tol: float = 1e-3
@@ -195,7 +194,8 @@ class LMConfig:
     cg_warm_start: bool = True
     # >0: per-linearization CG tolerance clip(sqrt(‖g‖∞/‖g₀‖∞), cg_tol, cg_forcing)
     cg_forcing: float = 0.0
-    # PCG preconditioner; only the block-Jacobi one is ported
+    # PCG preconditioner of the sparse tiers: "jacobi" (block diagonal of S)
+    # or "tridiag" (PCR-factored block-tridiagonal part; banded plans)
     precond: str = "jacobi"
     diag_floor: float = 1e-6
     diag_ceil: float = 1e32

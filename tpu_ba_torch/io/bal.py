@@ -1,9 +1,13 @@
-"""BAL-dimension-matched stand-in problems (ring covisibility).
+"""BAL-dimension-matched stand-in problems, at the published BAL counts of
+cameras, points and observations.
 
-Counterpart of ``tpu_ba/io/bal.py:make_bal_like_problem``: cameras along a
-closed vehicle loop, points in a band around it, each point seen by a window
-of nearby cameras — the Ladybug structure, at the published BAL counts of
-cameras, points and observations. Numpy drawn from
+Counterpart of ``tpu_ba/io/bal.py:make_bal_like_problem``, with its two
+covisibility structures: ``covis="ring"``, cameras along a closed vehicle
+loop, points in a band around it, each point seen by a window of nearby
+cameras (the Ladybug structure: camera covisibility collapses to a few index
+offsets); and ``covis="community"``, a photo collection of a landmark, as
+real BAL Trafalgar and Venice are (``_community_scene``: no structure in the
+camera order, far more than 32 distinct index offsets). Numpy drawn from
 ``np.random.default_rng(seed)`` in the reference's order, so both packages
 generate byte-identical problems; the ``data/cache/*.npz`` cache uses the
 reference's key and format, so either package's cache serves the other.
@@ -43,19 +47,19 @@ def make_bal_like_problem(
     covis: str = "ring",
     device=None,
 ):
-    """Synthesize the ring stand-in for BAL problem ``name``, with its exact
-    observation count. Returns (problem, ground_truth dict). The cache lives
-    under ``data/cache/`` relative to the working directory."""
+    """Synthesize the stand-in for BAL problem ``name`` with covisibility
+    ``covis`` ("ring" or "community") and its exact observation count.
+    Returns (problem, ground_truth dict). The cache lives under
+    ``data/cache/`` relative to the working directory."""
     device = resolve_device(device)
     if name not in BAL_DATASET_DIMS:
         raise KeyError(f"unknown BAL stand-in {name!r}; have {sorted(BAL_DATASET_DIMS)}")
-    if covis != "ring":
-        raise NotImplementedError(
-            f"covis={covis!r}: only the ring stand-in is ported "
-            "(community covisibility: ROADMAP queue 1, item 7)")
+    if covis not in ("ring", "community"):
+        raise ValueError(f"covis must be 'ring' or 'community', got {covis!r}")
     n_cams, n_pts, n_obs = BAL_DATASET_DIMS[name]
 
-    cache_key = (f"balstandin_{name}_s{seed}_n{pixel_noise}_c{cam_perturb}"
+    ctag = "" if covis == "ring" else f"_{covis}"
+    cache_key = (f"balstandin_{name}{ctag}_s{seed}_n{pixel_noise}_c{cam_perturb}"
                  f"_p{point_perturb}_i{intrinsics_perturb}_o{outlier_frac}")
     cache_path = os.path.join("data", "cache", cache_key + ".npz")
     if os.path.exists(cache_path):
@@ -68,6 +72,13 @@ def make_bal_like_problem(
         return problem, ground_truth
 
     rng = np.random.default_rng(seed)
+    finish = dict(pixel_noise=pixel_noise, cam_perturb=cam_perturb, point_perturb=point_perturb,
+                  intrinsics_perturb=intrinsics_perturb, outlier_frac=outlier_frac, dtype=dtype,
+                  pad_multiple=pad_multiple, device=device)
+
+    if covis == "community":
+        cams_gt, points_gt, cam_idx, pt_idx = _community_scene(rng, n_cams, n_pts, n_obs)
+        return _finish_bal_like(rng, cams_gt, points_gt, cam_idx, pt_idx, cache_path, **finish)
 
     # trajectory: closed loop of radius R with lateral wobble
     s = 2 * np.pi * np.arange(n_cams) / n_cams
@@ -107,16 +118,7 @@ def make_bal_like_problem(
 
     cand_cam = window.reshape(-1).astype(np.int32)
     cand_pt = np.repeat(np.arange(n_pts, dtype=np.int32), k_window)
-    cam_flat = cams_gt[cand_cam]
-    X_flat = points_gt[cand_pt]
-    aa, t = cam_flat[:, 0:3], cam_flat[:, 3:6]
-    theta = np.linalg.norm(aa, axis=1, keepdims=True)
-    k_ax = aa / np.where(theta < 1e-12, 1.0, theta)
-    c, s = np.cos(theta), np.sin(theta)
-    P = (X_flat * c + _cross_np(k_ax, X_flat) * s
-         + k_ax * np.sum(k_ax * X_flat, 1, keepdims=True) * (1 - c) + t)
-    uv = _project_bal_np(cam_flat, X_flat)
-    valid = (P[:, 2] < -1.0) & (np.abs(uv) < 1500.0).all(axis=1)
+    valid = _projects_validly(cams_gt[cand_cam], points_gt[cand_pt], 1500.0)
 
     # rank candidates per point: valid first, then nearest in window order
     valid_mat = valid.reshape(n_pts, k_window)
@@ -126,17 +128,29 @@ def make_bal_like_problem(
     pt_idx = np.repeat(np.arange(n_pts, dtype=np.int32), k_target).reshape(
         n_pts, k_target)[chosen_valid]
 
-    # match the exact observation count: trim extras or duplicate valid pairs
-    total = cam_idx.shape[0]
-    if total > n_obs:
-        keep = rng.permutation(total)[:n_obs]
-        keep.sort()
-        cam_idx, pt_idx = cam_idx[keep], pt_idx[keep]
-    elif total < n_obs:
-        extra = rng.integers(0, total, n_obs - total)
-        cam_idx = np.concatenate([cam_idx, cam_idx[extra]])
-        pt_idx = np.concatenate([pt_idx, pt_idx[extra]])
+    cam_idx, pt_idx = _match_observation_count(rng, cam_idx, pt_idx, n_obs)
+    return _finish_bal_like(rng, cams_gt, points_gt, cam_idx, pt_idx, cache_path, **finish)
 
+
+def _projects_validly(cams, pts, max_pixel: float):
+    """Per (camera, point) row: the point lies in front of the camera (BAL
+    looks down −z) and projects within ``max_pixel`` of the centre."""
+    aa, t = cams[:, 0:3], cams[:, 3:6]
+    theta = np.linalg.norm(aa, axis=1, keepdims=True)
+    k_ax = aa / np.where(theta < 1e-12, 1.0, theta)
+    c, s = np.cos(theta), np.sin(theta)
+    P = (pts * c + _cross_np(k_ax, pts) * s
+         + k_ax * np.sum(k_ax * pts, 1, keepdims=True) * (1 - c) + t)
+    uv = _project_bal_np(cams, pts)
+    return (P[:, 2] < -1.0) & (np.abs(uv) < max_pixel).all(axis=1)
+
+
+def _finish_bal_like(rng, cams_gt, points_gt, cam_idx, pt_idx, cache_path, *, pixel_noise,
+                     cam_perturb, point_perturb, intrinsics_perturb, outlier_frac, dtype,
+                     pad_multiple, device):
+    """Shared tail of the stand-in generators: project, add noise and
+    outliers, perturb the initial estimate, cache, build the BAProblem."""
+    n_cams, n_pts = cams_gt.shape[0], points_gt.shape[0]
     obs = _project_bal_np(cams_gt[cam_idx], points_gt[pt_idx])
     obs += pixel_noise * rng.standard_normal(obs.shape)
     if outlier_frac > 0:
@@ -164,3 +178,112 @@ def make_bal_like_problem(
     ground_truth = {"cameras": cams_gt, "points": points_gt,
                     "pixel_noise": pixel_noise, "n_obs": int(cam_idx.shape[0])}
     return problem, ground_truth
+
+
+def _match_observation_count(rng, cam_idx, pt_idx, n_obs: int):
+    """Trim extras or duplicate valid pairs to the exact observation count."""
+    total = cam_idx.shape[0]
+    if total > n_obs:
+        keep = rng.permutation(total)[:n_obs]
+        keep.sort()
+        cam_idx, pt_idx = cam_idx[keep], pt_idx[keep]
+    elif total < n_obs:
+        extra = rng.integers(0, total, n_obs - total)
+        cam_idx = np.concatenate([cam_idx, cam_idx[extra]])
+        pt_idx = np.concatenate([pt_idx, pt_idx[extra]])
+    return cam_idx, pt_idx
+
+
+def _community_scene(rng, n_cams: int, n_pts: int, n_obs: int):
+    """Community-photo-collection scene: the covisibility of real BAL
+    Trafalgar and Venice (unordered photos of a landmark).
+
+    Plaza model: points on a surrounding wall (an annulus), cameras clustered
+    at Zipf-weighted hotspots inside the plaza, each looking outward at a
+    random wall bearing. A point's observers are sampled from the cameras
+    whose view cone covers it, weighted by a per-camera Zipf popularity:
+    power-law camera degrees, covisible pairs spread over the whole
+    angular-overlap graph. Camera ids are shuffled at the end, so index order
+    carries no structure and the distinct index offsets number about
+    ``n_cams``, not ≤ 32: no banded or track layout applies. The random
+    stream is the reference's, draw for draw."""
+    R_wall = 30.0
+    ang_p = 2 * np.pi * rng.random(n_pts)
+    rad_p = np.maximum(rng.normal(R_wall, 3.0, n_pts), 10.0)
+    height = rng.normal(1.0, 2.0, n_pts)
+    points_gt = np.stack([rad_p * np.cos(ang_p), height, rad_p * np.sin(ang_p)], axis=-1)
+
+    # cameras: hotspot-clustered positions inside the plaza
+    n_hot = max(8, n_cams // 40)
+    hot_ang = 2 * np.pi * rng.random(n_hot)
+    hot_rad = 10.0 * np.sqrt(rng.random(n_hot))
+    hot_xy = np.stack([hot_rad * np.cos(hot_ang), hot_rad * np.sin(hot_ang)], axis=-1)
+    hot_w = (1.0 + np.arange(n_hot)) ** -1.1
+    hot_w = rng.permutation(hot_w / hot_w.sum())
+    cam_hot = rng.choice(n_hot, n_cams, p=hot_w)
+    pos = np.stack([
+        hot_xy[cam_hot, 0] + 1.5 * rng.standard_normal(n_cams),
+        0.3 * rng.standard_normal(n_cams),
+        hot_xy[cam_hot, 1] + 1.5 * rng.standard_normal(n_cams),
+    ], axis=-1)
+    # each camera photographs a random wall bearing
+    view_ang = 2 * np.pi * rng.random(n_cams)
+
+    cams_gt = np.zeros((n_cams, 9))
+    targets = np.stack([R_wall * np.cos(view_ang), np.zeros(n_cams),
+                        R_wall * np.sin(view_ang)], axis=-1)
+    for i in range(n_cams):
+        Rm = _look_at_rotation(pos[i], targets[i])
+        cams_gt[i, 0:3] = _matrix_to_aa_np(Rm)
+        cams_gt[i, 3:6] = -Rm @ pos[i]
+        cams_gt[i, 6] = 400.0 * (1.0 + 0.05 * rng.standard_normal())
+        cams_gt[i, 7] = -1e-7 * rng.random()
+        cams_gt[i, 8] = 1e-13 * rng.random()
+
+    # per-camera Zipf popularity (a few photos dominate)
+    pop = (1.0 + np.arange(n_cams)) ** -0.9
+    pop = rng.permutation(pop / pop.sum())
+
+    # candidates by angular visibility, in wall-bearing bins: a camera with
+    # view angle φ covers the bearings within ±half_fov of φ
+    half_fov = np.deg2rad(50.0)
+    n_bins = 720
+    bin_of_pt = np.minimum((ang_p / (2 * np.pi) * n_bins).astype(np.int64), n_bins - 1)
+    k_target = max(int(np.ceil(n_obs / n_pts)) + 1, 2)
+
+    cand_cam = np.zeros((n_pts, k_target), np.int64)
+    bin_centers = (np.arange(n_bins) + 0.5) * 2 * np.pi / n_bins
+    for b in range(n_bins):
+        pts_b = np.nonzero(bin_of_pt == b)[0]
+        if pts_b.size == 0:
+            continue
+        d = np.abs((view_ang - bin_centers[b] + np.pi) % (2 * np.pi) - np.pi)
+        elig = np.nonzero(d < half_fov)[0]
+        if elig.size == 0:
+            elig = np.argsort(d)[:8]
+        # Gumbel top-k: weighted sampling without replacement per point
+        g = np.log(pop[elig])[None, :] + rng.gumbel(size=(pts_b.size, elig.size))
+        kk = min(k_target, elig.size)
+        top = np.argpartition(-g, kk - 1, axis=1)[:, :k_target]
+        chosen = elig[top[:, :kk]]
+        if kk < k_target:  # repeat the last choice; validity sorts out duplicates
+            chosen = np.concatenate(
+                [chosen, np.broadcast_to(chosen[:, -1:], (pts_b.size, k_target - kk))], axis=1)
+        cand_cam[pts_b] = chosen
+
+    # validity by actual projection
+    cand_pt = np.repeat(np.arange(n_pts, dtype=np.int64), k_target)
+    valid = _projects_validly(cams_gt[cand_cam.reshape(-1)], points_gt[cand_pt], 800.0)
+    valid_mat = valid.reshape(n_pts, k_target)
+    rank = np.argsort(~valid_mat, axis=1, kind="stable")
+    chosen_valid = np.take_along_axis(valid_mat, rank, axis=1)
+    cam_idx = np.take_along_axis(cand_cam, rank, axis=1)[chosen_valid]
+    pt_idx = np.broadcast_to(np.arange(n_pts, dtype=np.int64)[:, None],
+                             (n_pts, k_target))[chosen_valid]
+    cam_idx, pt_idx = _match_observation_count(rng, cam_idx, pt_idx, n_obs)
+
+    # shuffle camera ids: index order must carry no spatial structure
+    relabel = rng.permutation(n_cams)
+    cams_gt = cams_gt[np.argsort(relabel)]
+    cam_idx = relabel[cam_idx]
+    return cams_gt, points_gt, cam_idx.astype(np.int32), pt_idx.astype(np.int32)

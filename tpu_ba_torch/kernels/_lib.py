@@ -29,8 +29,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 # kernel name → launches since the last reset
+# ("pcg_band": the fold-damp form of the PCG kernel, K4; "pcg_band_given": its
+# forms with Ul and the preconditioner given, K8)
 launches = {"segsum": 0, "linearize": 0, "cost": 0, "pcg_band": 0, "trackband": 0,
-            "slotband": 0, "pairblocks": 0}
+            "slotband": 0, "pairblocks": 0, "pcg_band_given": 0}
 
 _lib = None
 
@@ -47,10 +49,12 @@ _SIGNATURES = {
     # W, cam, mask, V, row_start, off_idx, lam, out, degree, pt_pad, span,
     # c_pad, ld_out, diag_floor, diag_ceil, stream
     "tba_slot_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
-    # blk, ld, U_t, b, x0, offsets, n_offsets, n_cameras, c_pad, lam, tol,
-    # max_iters, diag_floor, diag_ceil, work, partial, x, iterations, ok, stream
-    "tba_pcg_banded": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _F, _F, _P, _P,
-                       _P, _P, _P, _P],
+    # form, blk, ld, U, Minv, pcr_P, pcr_Q, pcr_D, pcr_levels, b, x0, offsets,
+    # n_offsets, n_cameras, c_pad, row_start, row_cj, col_start, col_seg, col_ci,
+    # left_base, n_left, lam, tol, max_iters, diag_floor, diag_ceil, work,
+    # partial, x, iterations, ok, stream
+    "tba_pcg_banded": [_I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                       _P, _P, _I, _I, _P, _P, _I, _F, _F, _P, _P, _P, _P, _P, _P],
     # values, seg_start, out, n_rows, n_obs, n_out, group_log2, stream
     "tba_segsum_t": [_P, _P, _P, _I, _I, _I, _I, _P],
     # cams, pts, obs, pt_idx, mask, cam_start, n_cameras, n_obs, robust_kind,

@@ -26,4 +26,4 @@ def inv_spd_small(M, *, pivot_floor: float = 1e-30):
         col = A[..., :, i]                              # (..., k)
         A = A - col[..., :, None] * row[..., None, :]   # a new tensor each step
         A[..., i, :] = row
-    return A[..., k:]
+    return A[..., k:].contiguous()

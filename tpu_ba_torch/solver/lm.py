@@ -12,10 +12,15 @@ Host reads: each λ-retry brings one small tensor to the host (accepted,
 λ below its ceiling, and the convergence test evaluated as if this retry
 were the last), and each CG iteration of the host-loop PCG one flag
 (``solver/pcg.py``); both are counted in
-``tpu_ba_torch.solver.pcg.host_reads``. The banded PCG kernel (K4) runs its
-loop on the device and reads nothing.
+``tpu_ba_torch.solver.pcg.host_reads``. The banded PCG kernel (K4, K8) runs
+its loop on the device and reads nothing.
 
 Linear-solver tiers (the names are the reference's):
+  * "dense"               — the full damped normal equations solved directly
+                            (``solver/dense.py``): the oracle, tiny problems
+  * "schur_dense"         — explicit dense reduced camera system from a
+                            non-symmetric pair plan, block-Jacobi PCG
+  * "schur_dense_pallas"  — the same with K2/K3 (linearize, trial cost)
   * "schur_pcg"           — matrix-free Schur + block-Jacobi PCG, plain
                             PyTorch reductions
   * "schur_pcg_pallas"    — the same with the hand-written kernels: K2
@@ -25,10 +30,11 @@ Linear-solver tiers (the names are the reference's):
                             static covisibility-pair plan
                             (``solver/pairs.py``), all plain PyTorch: the
                             CPU oracle and the f64 tier
-  * "schur_sparse_pallas" — the same with K2/K3/K1, the band built by K7
-                            (pairs), K5 (tracks) and K6 (slots), and the
-                            whole PCG solve in K4 when the plan is fully
-                            banded
+  * "schur_sparse_pallas" — the same with K2/K3/K1, the blocks built by K7
+                            (pairs), K5 (tracks) and K6 (slots); on a banded
+                            plan the whole PCG solve in one kernel (K4, or K8
+                            with ``precond="tridiag"``), on a non-banded one
+                            the host-loop PCG with K1 in its matvec
 """
 
 from __future__ import annotations
@@ -44,34 +50,26 @@ from tpu_ba_torch.jacobians.analytic import jacobian_blocks_bal
 from tpu_ba_torch.kernels.linearize import fused_cost, fused_linearize_assemble
 from tpu_ba_torch.residuals.reprojection import residuals_bal
 from tpu_ba_torch.residuals.robust import robust_rho
+from tpu_ba_torch.solver.dense import solve_dense
 from tpu_ba_torch.solver.normal import BlockSystem, assemble
-from tpu_ba_torch.solver.pairs import build_pair_plan, precompute_pair_data, solve_schur_sparse
+from tpu_ba_torch.solver.pairs import (build_pair_plan, precompute_pair_data, solve_schur_dense,
+                                       solve_schur_sparse)
 from tpu_ba_torch.solver.pcg import read_flags
 from tpu_ba_torch.solver.plans import build_plans, pt_segsum_t
 from tpu_ba_torch.solver.schur import solve_schur_pcg
 
-TIERS = ("schur_pcg", "schur_pcg_pallas", "schur_sparse", "schur_sparse_pallas")
 SPARSE_TIERS = ("schur_sparse", "schur_sparse_pallas")
-# the reference's other tiers, and the ROADMAP item that brings each
-_NOT_PORTED = {
-    "dense": "ROADMAP queue 1, item 7 (remaining tiers: the full-H oracle)",
-    "schur_dense": "ROADMAP queue 1, item 7 (remaining tiers: dense reduced system)",
-    "schur_dense_pallas": "ROADMAP queue 1, item 7 (remaining tiers: dense reduced system)",
-}
+DENSE_TIERS = ("schur_dense", "schur_dense_pallas")
+TIERS = ("dense", "schur_pcg", "schur_pcg_pallas") + DENSE_TIERS + SPARSE_TIERS
 
 
 def check_config(config: LMConfig) -> None:
-    """Raise NotImplementedError for what this package does not run yet."""
+    """Raise ValueError for an unknown tier or preconditioner and
+    NotImplementedError for what this package does not run yet."""
     if config.linear_solver not in TIERS:
-        where = _NOT_PORTED.get(config.linear_solver)
-        if where is None:
-            raise ValueError(f"unknown linear_solver {config.linear_solver!r}")
-        raise NotImplementedError(
-            f"linear_solver={config.linear_solver!r} is not ported yet: {where}")
-    if config.precond != "jacobi":
-        raise NotImplementedError(
-            f"precond={config.precond!r} is not ported yet: ROADMAP queue 1, item 7 (the PCR "
-            "block-tridiagonal preconditioner) and queue 2, K8")
+        raise ValueError(f"unknown linear_solver {config.linear_solver!r}")
+    if config.precond not in ("jacobi", "tridiag"):
+        raise ValueError(f"precond must be 'jacobi' or 'tridiag', got {config.precond!r}")
     if config.checkpoint_every > 0:
         raise NotImplementedError(
             "checkpoint_every>0 (chunked checkpointing) is not ported yet: ROADMAP queue 1, item 6")
@@ -87,13 +85,14 @@ def _robust_cost(r, kind, scale, mask):
 def lm_loop(cams0, pts0, obs, ci, pi, mask, n_cameras: int, n_points: int,
             config: LMConfig, plans=None, init_state=None, pairs=None) -> LMResult:
     """The LM trust-region loop. ``pairs`` is the pair plan of the sparse
-    tiers (``solver/pairs.py``). ``init_state`` = (lam, nu, it[, warm_dxc,
+    and dense-Schur tiers (``solver/pairs.py``). ``init_state`` = (lam, nu, it[, warm_dxc,
     gnorm0]) — numbers, numpy arrays or tensors, e.g. from a ``tpu_ba``
     LMResult — resumes the trust-region state; with cams0/pts0 from the same
     source the resumed trajectory is the uninterrupted one."""
     check_config(config)
     sparse = config.linear_solver in SPARSE_TIERS
-    if sparse and pairs is None:
+    paired = sparse or config.linear_solver in DENSE_TIERS
+    if paired and pairs is None:
         raise ValueError(f"linear_solver={config.linear_solver!r} needs a pair plan "
                          "(solve() builds one)")
     dtype, device = cams0.dtype, cams0.device
@@ -131,13 +130,18 @@ def lm_loop(cams0, pts0, obs, ci, pi, mask, n_cameras: int, n_points: int,
         return assemble(r, Jc, Jp, ci, pi, n_cameras, n_points, kind, scale, mask, plans)
 
     def linear_solve(B, lam, pair_data, cg_x0, cg_tol):
+        if config.linear_solver == "dense":
+            dxc, dxp = solve_dense(B, lam, config.diag_floor, config.diag_ceil)
+            return dxc, dxp, 0, torch.ones((), dtype=torch.bool, device=device)
         kw = dict(cg_max_iters=config.cg_max_iters, cg_tol=cg_tol, cg_x0=cg_x0,
-                  diag_floor=config.diag_floor, diag_ceil=config.diag_ceil, plans=plans)
+                  diag_floor=config.diag_floor, diag_ceil=config.diag_ceil)
         if sparse:
             return solve_schur_sparse(
-                B, lam, pairs, pair_data, precond=config.precond,
+                B, lam, pairs, pair_data, precond=config.precond, plans=plans,
                 pcg_kernel=config.linear_solver == "schur_sparse_pallas", **kw)
-        return solve_schur_pcg(B, lam, **kw)
+        if paired:
+            return solve_schur_dense(B, lam, pairs, pair_data, **kw)
+        return solve_schur_pcg(B, lam, plans=plans, **kw)
 
     M = config.max_iters
     cost0 = cost_fn(cams0, pts0)
@@ -164,10 +168,14 @@ def lm_loop(cams0, pts0, obs, ci, pi, mask, n_cameras: int, n_points: int,
     n_acc = 0
     gnorm = as_scalar(np.inf)
     done = False
+    pair_data = None
     while it < M and not done:
+        # drop the last linearization's pair gathers (gigabytes at Venice
+        # scale) before the next ones are made
+        B = pair_data = None
         B = linearize(cams, pts)
         # λ-free pair-space gathers, amortized over the λ-retries
-        pair_data = precompute_pair_data(B, pairs) if sparse else None
+        pair_data = precompute_pair_data(B, pairs) if paired else None
         gnorm = torch.maximum(B.gc.abs().max(), B.gp.abs().max())
         gnorm0 = torch.where(gnorm0 > 0, gnorm0, gnorm)
         cg_tol = config.cg_tol
@@ -266,15 +274,42 @@ def _memoized(key, build):
     return _PLAN_MEMO[key]
 
 
+def build_solver_plans(problem: BAProblem, config: LMConfig):
+    """(assembly plans, pair plan) that ``config.linear_solver`` needs for
+    ``problem``, each None where the tier uses none; memoized per problem
+    structure. The ``*_pallas`` tiers get the segment plans
+    (``solver/plans.py``); the sparse tiers a symmetric pair plan, with what
+    the kernels walk only for ``schur_sparse_pallas``; the dense-Schur tiers
+    a full (non-symmetric) one."""
+    plans = pairs = None
+    tier = config.linear_solver
+    paired = tier in SPARSE_TIERS or tier in DENSE_TIERS
+    if tier.endswith("_pallas") or paired:
+        structure = _structure_key(problem)
+    if tier.endswith("_pallas"):
+        plans = _memoized(
+            ("assembly",) + structure,
+            lambda: build_plans(problem.cam_idx, problem.pt_idx,
+                                problem.cameras.shape[0], problem.points.shape[0]))
+    if paired:
+        sparse = tier in SPARSE_TIERS
+        kernels = tier == "schur_sparse_pallas"
+        # S = Sᵀ: the compact path stores only the ci ≤ cj blocks; the dense
+        # T-major build needs the full enumeration
+        pairs = _memoized(
+            (f"pairs-{sparse}-{kernels}",) + structure,
+            lambda: build_pair_plan(problem.cam_idx, problem.pt_idx, problem.n_obs,
+                                    problem.cameras.shape[0], problem.points.shape[0],
+                                    with_kernel_plans=kernels, symmetric=sparse))
+    return plans, pairs
+
+
 def solve(problem: BAProblem, config: LMConfig | None = None, *,
           init_state=None) -> LMResult:
     """Bundle-adjust ``problem`` with Levenberg–Marquardt on the problem's
-    device. The ``*_pallas`` tiers build the segment plans
-    (``solver/plans.py``) and run the hand-written kernels; on CPU tensors
-    the kernels' plain versions run instead. The sparse tiers build the
-    covisibility-pair plan (``solver/pairs.py``), with what the kernels walk
-    only for ``schur_sparse_pallas``. Plans are memoized per problem
-    structure. ``init_state`` is that of ``lm_loop``."""
+    device. The ``*_pallas`` tiers run the hand-written kernels; on CPU
+    tensors the kernels' plain versions run instead. Plans are those of
+    ``build_solver_plans``. ``init_state`` is that of ``lm_loop``."""
     if config is None:
         config = LMConfig()
     if problem.model == "pinhole":
@@ -284,22 +319,7 @@ def solve(problem: BAProblem, config: LMConfig | None = None, *,
     elif problem.model != "bal":
         raise ValueError(f"solve() handles the 'bal' and 'pinhole' models; got {problem.model!r}")
     check_config(config)
-    plans = pairs = None
-    if config.linear_solver.endswith("_pallas") or config.linear_solver in SPARSE_TIERS:
-        structure = _structure_key(problem)
-    if config.linear_solver.endswith("_pallas"):
-        plans = _memoized(
-            ("assembly",) + structure,
-            lambda: build_plans(problem.cam_idx, problem.pt_idx,
-                                problem.cameras.shape[0], problem.points.shape[0]))
-    if config.linear_solver in SPARSE_TIERS:
-        kernels = config.linear_solver == "schur_sparse_pallas"
-        # S = Sᵀ: the compact path stores only the ci ≤ cj blocks
-        pairs = _memoized(
-            (f"pairs-{kernels}",) + structure,
-            lambda: build_pair_plan(problem.cam_idx, problem.pt_idx, problem.n_obs,
-                                    problem.cameras.shape[0], problem.points.shape[0],
-                                    with_kernel_plans=kernels, symmetric=True))
+    plans, pairs = build_solver_plans(problem, config)
     return lm_loop(problem.cameras, problem.points, problem.obs_2d, problem.cam_idx,
                    problem.pt_idx, problem.mask, problem.cameras.shape[0],
                    problem.points.shape[0], config, plans=plans,

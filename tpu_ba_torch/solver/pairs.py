@@ -11,21 +11,25 @@ work then happens in pair space with no gathers:
   per λ-retry: damp and invert the 3×3 point blocks in place, form the pair
       products, reduce them into the compact blocks (``_compact_blocks``:
       K7 for enumerated pairs, K5 for consecutive tracks, K6 for short
-      tracks with gaps), then block-Jacobi PCG on the blocks
-      (``solve_schur_sparse``: K4 when the kernel is asked for, which needs
-      a fully banded plan; the host loop of ``solver/pcg.py`` over
-      ``make_banded_matvec`` when it is not).
+      tracks with gaps), then PCG on the blocks (``solve_schur_sparse``):
+      on a banded plan the whole solve in one kernel when the kernel is asked
+      for (K4 with the block-Jacobi preconditioner, K8 with the
+      block-tridiagonal one of ``solver/tridiag.py``), else the host loop of
+      ``solver/pcg.py`` over ``make_banded_matvec``; on a non-banded plan
+      the host loop over the generic compact matvec (gather, block·vector,
+      K1 by row camera, and the transposed pass by column camera).
 
 With ``symmetric=True`` only the ci ≤ cj half is stored; ``banded`` lays the
 first ``k_band`` segments out as a dense (offset, camera) grid, segment
-o·c_pad + c holding block T_{c, c+band_offsets[o]}.
+o·c_pad + c holding block T_{c, c+band_offsets[o]}. Points whose track
+exceeds ``max_degree`` are not pair-enumerated: their term of S is applied
+matrix-free (``_heavy_operator``). A non-symmetric plan also serves the dense
+reduced system (``build_schur_t``, ``solve_schur_dense``).
 
 The planning is host numpy and follows the reference branch for branch, so
-the structure can be held against it array for array. Ported here: the
-symmetric banded plan with the block-Jacobi preconditioner. Plans with heavy
-points, non-banded plans, the tridiagonal preconditioner, the sharded solve,
-the dense tier and the PCG kernel over a band with off-band leftovers raise
-NotImplementedError naming their ROADMAP item.
+the structure can be held against it array for array. Not ported: the
+sharded solve (``axis_name``), which raises NotImplementedError naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,9 +41,10 @@ import numpy as np
 import torch
 
 from tpu_ba_torch.core import _round_up, device_of, to_host
-from tpu_ba_torch.kernels.pairblocks import fused_pair_blocks, fused_pair_blocks_plain
+from tpu_ba_torch.kernels.pairblocks import (block_products_rows, damped_vinv_rows,
+                                             fused_pair_blocks, fused_pair_blocks_plain)
 from tpu_ba_torch.kernels.pcg_band import pcg_banded
-from tpu_ba_torch.kernels.segsum import sorted_segment_sum_t_plain
+from tpu_ba_torch.kernels.segsum import sorted_segment_sum_t, sorted_segment_sum_t_plain
 from tpu_ba_torch.kernels.slotband import slot_band_blocks, slot_band_blocks_plain
 from tpu_ba_torch.kernels.trackband import fused_track_blocks, fused_track_blocks_plain
 from tpu_ba_torch.solver import slots as slots_mod
@@ -47,13 +52,28 @@ from tpu_ba_torch.solver import tracks as tracks_mod
 from tpu_ba_torch.solver.batched_linalg import inv_spd_small
 from tpu_ba_torch.solver.normal import BlockSystem, damp_blocks
 from tpu_ba_torch.solver.pcg import pcg
-from tpu_ba_torch.solver.schur import back_substitute, inv3x3_rows, schur_rhs
+from tpu_ba_torch.solver.schur import (_matmul_rows_33, _w_dot, _wt_dot, back_substitute,
+                                       inv3x3_rows, schur_rhs, w_vinv_wt_diag)
+from tpu_ba_torch.solver.tridiag import pcr_apply, pcr_factor, tridiag_from_band
 
 PAIR_ARRAYS = ("pair_i", "pair_j", "pair_pt", "pair_key", "pair_seg", "seg_ci", "seg_cj",
                "diag_pos", "heavy_obs", "heavy_cam", "heavy_seg", "heavy_pt_ids")
 PAIR_OPTIONAL_ARRAYS = ("seg_perm_cj", "cj_keys", "nondiag")
 PAIR_META = ("n_pairs", "n_cameras", "max_degree", "n_segments", "k_pad", "n_heavy_obs",
              "n_heavy_pts", "symmetric", "banded", "band_offsets", "c_pad", "k_band")
+
+
+class LeftoverLists(NamedTuple):
+    """The off-band leftover segments of a capped band (compact segments
+    k_band … n_segments−1, numbered from 0 here), as the PCG kernel walks
+    them: by row camera in segment order, and by column camera through a
+    stable permutation. All int32."""
+
+    row_start: torch.Tensor  # (C+1,) CSR starts by row camera ci
+    row_cj: torch.Tensor     # (L,) column camera of each leftover segment
+    col_start: torch.Tensor  # (C+1,) CSR starts by column camera cj
+    col_seg: torch.Tensor    # (L,) leftover segments in cj-sorted order
+    col_ci: torch.Tensor     # (L,) their row cameras
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +86,11 @@ class PairPlan:
     camera pair (padding segments carry ci == C); ``diag_pos`` locates camera
     c's (c, c) block. ``seg_start`` (k_pad + 1 int32, the CSR starts of the
     real pairs' ``pair_seg``) is what the pair kernel walks in place of the
-    reference's ``seg_plan`` (None ⇒ the plain versions run).
+    reference's ``seg_plan`` (None ⇒ the plain versions run). With it come,
+    on a non-banded plan, ``ci_start`` / ``cj_start`` (C + 2 CSR starts of
+    ``seg_ci`` and ``cj_keys``, keys 0 … C) for K1 in the compact matvec, in
+    place of the reference's ``ci_plan`` / ``cj_plan``; on a banded plan with
+    leftover segments, ``left``.
     """
 
     pair_i: torch.Tensor     # (Np,) int32, observation of the row side
@@ -101,6 +125,20 @@ class PairPlan:
     k_band: int = 0             # len(band_offsets) · c_pad
     track: tracks_mod.TrackLayout | None = None
     slot: slots_mod.SlotLayout | None = None
+    ci_start: torch.Tensor | None = None
+    cj_start: torch.Tensor | None = None
+    left: LeftoverLists | None = None
+
+
+def _leftover_lists(seg_ci: np.ndarray, seg_cj: np.ndarray, n_cameras: int):
+    """The five arrays of ``LeftoverLists`` from the leftover segments' camera
+    pairs (sorted by row camera, as the planner emits them)."""
+    if seg_ci.size and np.any(np.diff(seg_ci) < 0):
+        raise ValueError("leftover segments must be sorted by row camera")
+    edges = np.arange(n_cameras + 1)
+    perm = np.argsort(seg_cj, kind="stable")
+    return (np.searchsorted(seg_ci, edges, side="left"), seg_cj,
+            np.searchsorted(seg_cj[perm], edges, side="left"), perm, seg_ci[perm])
 
 
 def pair_plan_from_numpy(arrays: dict, *, track=None, slot=None, with_kernel_plans: bool = False,
@@ -121,12 +159,25 @@ def pair_plan_from_numpy(arrays: dict, *, track=None, slot=None, with_kernel_pla
     if seg.size and np.any(np.diff(seg) < 0):
         raise ValueError("pair_seg must be sorted ascending")
     C, k_pad = int(meta["n_cameras"]), int(meta["k_pad"])
-    seg_start = None
+    band_offsets = tuple(int(o) for o in meta["band_offsets"])
+    opt = {k: arrays.get(k) for k in PAIR_OPTIONAL_ARRAYS}
+    seg_start = ci_start = cj_start = left = None
     if with_kernel_plans:
         n_real = int((np.asarray(arrays["pair_key"]).astype(np.int64) < C * C).sum())
         seg_start = t(np.searchsorted(seg[:n_real], np.arange(k_pad + 1), side="left"))
-    band_offsets = tuple(int(o) for o in meta["band_offsets"])
-    opt = {k: arrays.get(k) for k in PAIR_OPTIONAL_ARRAYS}
+        seg_ci = np.asarray(arrays["seg_ci"]).astype(np.int64)
+        seg_cj = np.asarray(arrays["seg_cj"]).astype(np.int64)
+        k_band, K = int(meta["k_band"]), int(meta["n_segments"])
+        if not meta["banded"]:
+            if np.any(np.diff(seg_ci) < 0):
+                raise ValueError("seg_ci of a non-banded plan must be sorted ascending")
+            ci_start = t(np.searchsorted(seg_ci, np.arange(C + 2), side="left"))
+            if opt["cj_keys"] is not None:
+                cj_start = t(np.searchsorted(np.asarray(opt["cj_keys"]).astype(np.int64),
+                                             np.arange(C + 2), side="left"))
+        elif K > k_band:
+            left = LeftoverLists(*[t(a) for a in _leftover_lists(seg_ci[k_band:K],
+                                                                 seg_cj[k_band:K], C)])
     return PairPlan(
         **{k: t(arrays[k]) for k in PAIR_ARRAYS},
         n_pairs=int(meta["n_pairs"]), n_cameras=C, max_degree=int(meta["max_degree"]),
@@ -138,7 +189,8 @@ def pair_plan_from_numpy(arrays: dict, *, track=None, slot=None, with_kernel_pla
         nondiag=None if opt["nondiag"] is None else t(opt["nondiag"], np.float32),
         banded=bool(meta["banded"]), band_offsets=band_offsets,
         band_offsets_t=t(np.asarray(band_offsets, np.int64)) if band_offsets else None,
-        c_pad=int(meta["c_pad"]), k_band=int(meta["k_band"]), track=track, slot=slot)
+        c_pad=int(meta["c_pad"]), k_band=int(meta["k_band"]), track=track, slot=slot,
+        ci_start=ci_start, cj_start=cj_start, left=left)
 
 
 def build_pair_plan(cam_idx, pt_idx, n_obs: int, n_cameras: int, n_points: int, *,
@@ -148,14 +200,15 @@ def build_pair_plan(cam_idx, pt_idx, n_obs: int, n_cameras: int, n_points: int, 
                     slots: bool | None = None, device=None) -> PairPlan:
     """Host-side plan: enumerate observation pairs sharing a point, sorted by
     camera-pair key. Points whose track exceeds ``max_degree`` are split off
-    as *heavy* (recorded, not enumerated).
+    as *heavy* (recorded, not enumerated; ``_heavy_operator`` applies them).
 
     ``symmetric`` enumerates only the ci ≤ cj half. ``banded`` (symmetric
     only) lays the segments out as a dense (offset, ci) grid when the band
     would cover most pairs. ``tracks``/``slots`` hand the consecutive and the
     short gapped tracks to their own layouts (``solver/tracks.py``,
     ``solver/slots.py``) instead of enumerating them. ``with_kernel_plans``
-    also builds what the CUDA kernels walk (CSR starts). The plan's tensors
+    also builds what the CUDA kernels walk (CSR starts of the pairs, of the
+    compact matvec's keys, of a capped band's leftovers). The plan's tensors
     live on ``device`` (default: that of ``cam_idx``)."""
     device = device_of(cam_idx, device)
     cam_idx, pt_idx = to_host(cam_idx), to_host(pt_idx)
@@ -412,6 +465,8 @@ class PairData(NamedTuple):
     3dc..6dc−1 W[pair_j], the last 9 rows V[pair_pt]."""
 
     packed: torch.Tensor
+    heavy_W: torch.Tensor | None = None  # (3dc, Oh) W at the heavy observations
+    heavy_V: torch.Tensor | None = None  # (9, Ph) V at the heavy points
     # track-major pack: W in (27, dmax, Pt) slot order, V in start-sorted order
     trk_W: torch.Tensor | None = None
     trk_V: torch.Tensor | None = None
@@ -423,19 +478,10 @@ class PairData(NamedTuple):
     U_t: torch.Tensor | None = None
 
 
-def _refuse_heavy(pairs: PairPlan) -> None:
-    if pairs.n_heavy_pts:
-        raise NotImplementedError(
-            f"a pair plan with {pairs.n_heavy_pts} heavy points (tracks longer than max_degree) "
-            "needs the matrix-free heavy-track operator, which is not ported yet: ROADMAP queue "
-            "1, item 7 (_heavy_operator)")
-
-
 def precompute_pair_data(B: BlockSystem, pairs: PairPlan) -> PairData:
     """λ-free per-linearization gathers into pair, track and slot order. The
     BlockSystem is lane-major ((3dc, O) / (9, P)), so these are gathers along
     the last axis."""
-    _refuse_heavy(pairs)
     packed = torch.cat([B.W[:, pairs.pair_i], B.W[:, pairs.pair_j], B.V[:, pairs.pair_pt]], dim=0)
     trk_W = trk_V = None
     if pairs.track is not None:
@@ -450,7 +496,117 @@ def precompute_pair_data(B: BlockSystem, pairs: PairPlan) -> PairData:
         C = pairs.n_cameras
         U_t = torch.zeros((dc * dc, pairs.c_pad), dtype=B.U.dtype, device=B.U.device)
         U_t[:, :C] = B.U.permute(1, 2, 0).reshape(dc * dc, C)
-    return PairData(packed, trk_W=trk_W, trk_V=trk_V, slot_W=slot_W, slot_V=slot_V, U_t=U_t)
+    heavy_W = heavy_V = None
+    if pairs.n_heavy_pts:
+        heavy_W, heavy_V = B.W[:, pairs.heavy_obs], B.V[:, pairs.heavy_pt_ids]
+    return PairData(packed, heavy_W, heavy_V, trk_W=trk_W, trk_V=trk_V, slot_W=slot_W,
+                    slot_V=slot_V, U_t=U_t)
+
+
+def _heavy_operator(pair_data: PairData, lam, pairs: PairPlan, dc: int, diag_floor: float,
+                    diag_ceil: float):
+    """Matrix-free term of S for the heavy tracks at damping λ.
+
+    Returns (term, diag_h): ``term(x)`` (C, dc) → (C, dc) applies
+    [W V_λ⁻¹ Wᵀ]_heavy, ``diag_h`` (C, dc, dc) is its exact camera block
+    diagonal (for the preconditioner). Padding observations touch only the
+    trash column of V_λ⁻¹, which is zero."""
+    Wh = pair_data.heavy_W
+    C, Ph = pairs.n_cameras, pairs.n_heavy_pts
+    Vinv = damped_vinv_rows(pair_data.heavy_V, lam, diag_floor, diag_ceil)      # (9, Ph)
+    Vinv = torch.cat([Vinv, Vinv.new_zeros((9, 1))], dim=1)                     # trash column 0
+    heavy_cam, heavy_seg = pairs.heavy_cam.long(), pairs.heavy_seg.long()
+
+    def term(x):
+        wtx = _wt_dot(Wh, x.T[:, heavy_cam], dc)                     # (3, Oh)
+        t = sorted_segment_sum_t_plain(wtx, heavy_seg, Ph + 1)       # (3, Ph+1); keys unsorted
+        u = _matmul_rows_33(Vinv, t)
+        z = _w_dot(Wh, u[:, heavy_seg], dc)                          # (dc, Oh)
+        return sorted_segment_sum_t_plain(z, heavy_cam, C).T
+
+    diag_h = w_vinv_wt_diag(Wh, Vinv, heavy_cam, heavy_seg, C)
+    return term, diag_h
+
+
+def _pair_products_t(packed, lam, dc: int, diag_floor: float, diag_ceil: float):
+    """vals_t (dc², Np): the per-pair blocks W_i V_λ⁻¹ W_jᵀ, lane-major, the
+    3×3 damped inverse recomputed per pair."""
+    Wi, Wj, V = packed[:3 * dc], packed[3 * dc:6 * dc], packed[6 * dc:6 * dc + 9]
+    return block_products_rows(Wi, damped_vinv_rows(V, lam, diag_floor, diag_ceil), Wj, dc)
+
+
+def _reduce_pairs_t(vals_t, pair_key, n_cameras: int):
+    """T_t (dc², C²): segment sum of the pair blocks by camera-pair key (the
+    trailing trash segment C² collects the padding)."""
+    C2 = n_cameras * n_cameras
+    return sorted_segment_sum_t_plain(vals_t, pair_key, C2 + 1)[:, :C2]
+
+
+def build_schur_t(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData,
+                  diag_floor: float, diag_ceil: float):
+    """The reduced camera system in T-major layout, from a non-symmetric plan.
+
+    Returns (Ul, T4, diag_S): Ul (C, dc, dc) the damped camera blocks, T4
+    (dc, dc, C, C) = Σ_p W V_λ⁻¹ Wᵀ, diag_S (C, dc, dc) the exact block
+    diagonal of S = U_λ − T. The matvec never forms S:
+    y = Ul·x − einsum("ijcd,dj->ci", T4, x)."""
+    if pairs.symmetric:
+        raise ValueError("build_schur_t needs a full (non-symmetric) pair plan; build with "
+                         "symmetric=False")
+    C = pairs.n_cameras
+    dc = B.U.shape[-1]
+    Ul, _ = damp_blocks(B, lam, diag_floor, diag_ceil)
+    vals_t = _pair_products_t(pair_data.packed, lam, dc, diag_floor, diag_ceil)
+    T4 = _reduce_pairs_t(vals_t, pairs.pair_key, C).reshape(dc, dc, C, C)
+    diag_S = Ul - torch.diagonal(T4, dim1=2, dim2=3).permute(2, 0, 1)
+    return Ul, T4, diag_S
+
+
+def build_dense_schur(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData,
+                      diag_floor: float, diag_ceil: float):
+    """S = U_λ − W V_λ⁻¹ Wᵀ as a (dc·C, dc·C) matrix plus its exact block
+    diagonal (C, dc, dc): the test oracle. The solver stays in T-major layout
+    (``build_schur_t``) and never forms this matrix."""
+    if pairs.n_heavy_pts:
+        raise ValueError("build_dense_schur does not fold in heavy tracks; build the plan with "
+                         "a larger max_degree")
+    C = pairs.n_cameras
+    dc = B.U.shape[-1]
+    Ul, T4, diag_S = build_schur_t(B, lam, pairs, pair_data, diag_floor, diag_ceil)
+    S4 = -T4.permute(2, 0, 3, 1).clone()                              # (C, dc, C, dc)
+    idx = torch.arange(C, device=S4.device)
+    S4[idx, :, idx, :] += Ul
+    return S4.reshape(C * dc, C * dc), diag_S
+
+
+def solve_schur_dense(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData | None = None,
+                      *, cg_max_iters: int, cg_tol, cg_x0=None, diag_floor: float,
+                      diag_ceil: float):
+    """Linear solve on the explicit dense reduced camera system: block-Jacobi
+    PCG (host loop) over the T-major matvec. Returns (δ_cameras, δ_points,
+    cg_iters, ok), the contract of ``solve_schur_pcg``."""
+    if pair_data is None:
+        pair_data = precompute_pair_data(B, pairs)
+    dc = B.U.shape[-1]
+    Ul, T4, diag_S = build_schur_t(B, lam, pairs, pair_data, diag_floor, diag_ceil)
+    heavy_term = None
+    if pairs.n_heavy_pts:
+        heavy_term, diag_h = _heavy_operator(pair_data, lam, pairs, dc, diag_floor, diag_ceil)
+        diag_S = diag_S - diag_h
+    _, Vl_pts = damp_blocks(B, lam, diag_floor, diag_ceil)
+    Vinv_pts = inv3x3_rows(Vl_pts)
+    b = schur_rhs(B, Vinv_pts)
+    Minv = inv_spd_small(diag_S)
+
+    def matvec(x):
+        y = torch.einsum("cij,cj->ci", Ul, x) - torch.einsum("ijcd,dj->ci", T4, x)
+        return y if heavy_term is None else y - heavy_term(x)
+
+    def precond(r):
+        return torch.einsum("cij,cj->ci", Minv, r)
+
+    dx_cam, cg_iters, ok = pcg(matvec, b, precond, max_iters=cg_max_iters, tol=cg_tol, x0=cg_x0)
+    return dx_cam, back_substitute(B, Vinv_pts, dx_cam), cg_iters, ok
 
 
 def _compact_blocks(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData,
@@ -494,14 +650,15 @@ def _compact_blocks(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData,
     return blk
 
 
-def make_banded_matvec(blk, Ul, pairs: PairPlan, dc: int):
+def make_banded_matvec(blk, Ul, pairs: PairPlan, dc: int, heavy_term=None):
     """S·x for the banded symmetric layout. The band region of ``blk`` is a
     dense (offset, ci) grid, so applying T is shifts and products with no
     gathers: forward y_c −= Σ_off T_{c,c+off} x_{c+off} and, for off > 0, the
     transposed y_{c+off} −= T_{c,c+off}ᵀ x_c. The lanes a circular shift
     wraps into hold zero band blocks (cj = c+off ≥ C has no segment).
     Off-band leftover segments (a few ring wrap-arounds or loop closures when
-    the band is capped) go through gathers on their small slice."""
+    the band is capped) go through gathers on their small slice;
+    ``heavy_term`` is the matrix-free term of the heavy tracks."""
     C = pairs.n_cameras
     Bn = len(pairs.band_offsets)
     Cp = pairs.c_pad
@@ -530,7 +687,45 @@ def make_banded_matvec(blk, Ul, pairs: PairPlan, dc: int):
             tl = sorted_segment_sum_t_plain(zl, lci, C + 1)
             tl2 = sorted_segment_sum_t_plain(zl2, lcj, C + 1)
             y = y - tl[:, :C].T - tl2[:, :C].T
-        return y
+        return y if heavy_term is None else y - heavy_term(x)
+
+    return matvec
+
+
+def make_compact_matvec(blk, Ul, pairs: PairPlan, dc: int, heavy_term=None):
+    """S·x for a non-banded plan: gather x by column camera, block·vector per
+    segment, sum by row camera; a symmetric plan adds the transposed pass
+    y_cj −= T_{ci,cj}ᵀ x_ci over the off-diagonal blocks, summed by column
+    camera through the plan's cj-sorted permutation. With kernel plans the
+    two keyed sums go through the K1 wrapper (keys 0 … C, padding segments
+    under the trash camera C, whose blocks are exact zeros); without, through
+    plain PyTorch."""
+    C = pairs.n_cameras
+    blk3 = blk.reshape(dc, dc, -1)
+    seg_cj = pairs.seg_cj.long()
+    seg_ci_in = torch.clamp(pairs.seg_ci.long(), max=C - 1)
+    nondiag = perm = None
+    if pairs.symmetric:
+        nondiag = pairs.nondiag.to(blk.dtype)
+        if pairs.cj_start is not None:
+            perm = pairs.seg_perm_cj.long()
+
+    def matvec(x):
+        y = torch.einsum("cij,cj->ci", Ul, x)
+        z = (blk3 * x.T[:, seg_cj][None, :, :]).sum(dim=1)              # (dc, k_pad)
+        if pairs.ci_start is not None:
+            t = sorted_segment_sum_t(z, pairs.seg_ci, C + 1, pairs.ci_start)
+        else:
+            t = sorted_segment_sum_t_plain(z, pairs.seg_ci, C + 1)
+        y = y - t[:, :C].T
+        if pairs.symmetric:
+            z2 = (blk3 * x.T[:, seg_ci_in][:, None, :]).sum(dim=0) * nondiag[None, :]
+            if perm is not None:
+                t2 = sorted_segment_sum_t(z2[:, perm], pairs.cj_keys, C + 1, pairs.cj_start)
+            else:
+                t2 = sorted_segment_sum_t_plain(z2, seg_cj, C + 1)      # unsorted keys
+            y = y - t2[:, :C].T
+        return y if heavy_term is None else y - heavy_term(x)
 
     return matvec
 
@@ -543,72 +738,81 @@ def solve_schur_sparse(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData
 
     Returns (δ_cameras, δ_points, cg_iters, ok), the contract of
     ``solve_schur_pcg``; on the kernel route ``cg_iters`` is a 0-dim device
-    tensor. ``pcg_kernel`` (default: whether the plan carries kernel plans)
-    asks for K4, which takes a fully banded plan (no off-band leftover
-    segments) of any size. With tensors on the card and leftovers it raises:
-    nothing gives way to the host-loop PCG there unless the caller passes
-    ``pcg_kernel=False`` (the ``schur_sparse`` tier). On the CPU the kernel
-    route is the plain version of K4 in f32 and the host loop otherwise."""
+    tensor.
+
+    ``precond="tridiag"`` preconditions with the PCR-factored
+    block-tridiagonal part of S (``solver/tridiag.py``), factored once per
+    call. It engages on a banded plan without heavy points whose second band
+    offset is 1; any other plan is preconditioned with block-Jacobi, silently,
+    as in the reference.
+
+    ``pcg_kernel`` (default: whether the plan carries kernel plans) asks for
+    the whole solve in the PCG kernel, which takes a banded plan (off-band
+    leftover segments included) without heavy points: K4 with block-Jacobi,
+    where it damps U and inverts the block diagonal itself, K8 with
+    ``precond="tridiag"``, where Ul and the factors are computed here. Heavy
+    points and non-banded plans go to the host-loop PCG of ``solver/pcg.py``
+    by the reference's own conditions; nothing else gives way to it. On the
+    CPU the kernel route is the plain version of the kernel in f32 and the
+    host loop in f64, as the reference's f64 is; f64 on the card is refused
+    by the kernel's wrapper."""
     if axis_name is not None:
         raise NotImplementedError(
             "the sharded solve (axis_name) is not ported yet: ROADMAP queue 1, item 8")
-    if precond != "jacobi":
-        raise NotImplementedError(
-            f"precond={precond!r}: only the block-Jacobi preconditioner is ported; the "
-            "block-tridiagonal one is ROADMAP queue 1, item 7 (and queue 2, K8)")
-    _refuse_heavy(pairs)
-    if not pairs.banded:
-        raise NotImplementedError(
-            "a non-banded pair plan needs the generic compact matvec, which is not ported yet: "
-            "ROADMAP queue 1, item 7 (non-banded symmetric compact matvec)")
-    want_kernel = pcg_kernel if pcg_kernel is not None else pairs.seg_start is not None
-    on_card = B.U.device.type == "cuda"
-    fully_banded = pairs.n_segments <= pairs.k_band
-    if want_kernel and on_card and not fully_banded:
-        raise NotImplementedError(
-            f"the PCG kernel takes a fully banded plan; this one keeps "
-            f"{pairs.n_segments - pairs.k_band} off-band leftover segments, which it does not "
-            "apply yet: ROADMAP queue 1, item 4 (K4 over off-band leftovers). "
-            "linear_solver='schur_sparse' runs the host-loop PCG over the same blocks")
+    if precond not in ("jacobi", "tridiag"):
+        raise ValueError(f"precond must be 'jacobi' or 'tridiag', got {precond!r}")
     if pair_data is None:
         pair_data = precompute_pair_data(B, pairs)
     C = pairs.n_cameras
     dc = B.U.shape[-1]
+    want_kernel = pcg_kernel if pcg_kernel is not None else pairs.seg_start is not None
+    use_kernel = (pairs.banded and want_kernel and pairs.n_heavy_pts == 0
+                  and (B.U.dtype == torch.float32 or B.U.device.type == "cuda"))
 
     blk = _compact_blocks(B, lam, pairs, pair_data, diag_floor, diag_ceil)
     Ul, Vl_pts = damp_blocks(B, lam, diag_floor, diag_ceil)
     Vinv_pts = inv3x3_rows(Vl_pts)
     b = schur_rhs(B, Vinv_pts, plans)
 
-    if want_kernel and fully_banded and (B.U.dtype == torch.float32 or on_card):
+    if use_kernel and precond == "jacobi":
         # fold-damp route: K4 takes the undamped U_t and computes the damped
-        # Ul and the block-Jacobi M⁻¹ in its prologue. f64 on the CPU keeps
-        # to the host loop below, as the reference's f64 does; f64 on the
-        # card is refused by the wrapper.
+        # Ul and the block-Jacobi M⁻¹ in its prologue
         dx_cam, cg_iters, ok = pcg_banded(
             blk, None, None, b, pairs, max_iters=cg_max_iters, tol=cg_tol, x0=cg_x0,
             U_t=pair_data.U_t, lam=lam, diag_floor=diag_floor, diag_ceil=diag_ceil)
         return dx_cam, back_substitute(B, Vinv_pts, dx_cam, plans), cg_iters, ok
 
-    # the diagonal of T is band slot (offset 0, c): a plain slice
-    diag_S = Ul - blk[:, :C].reshape(dc, dc, C).permute(2, 0, 1)
+    # the diagonal of T: on a banded plan band slot (offset 0, c), a plain slice
+    diag_T = blk[:, :C] if pairs.banded else blk[:, pairs.diag_pos.long()]
+    diag_S = Ul - diag_T.reshape(dc, dc, C).permute(2, 0, 1)
+    heavy_term = None
+    if pairs.n_heavy_pts:
+        heavy_term, diag_h = _heavy_operator(pair_data, lam, pairs, dc, diag_floor, diag_ceil)
+        diag_S = diag_S - diag_h
     Minv = inv_spd_small(diag_S)
-    matvec = make_banded_matvec(blk, Ul, pairs, dc)
 
-    def apply_minv(r):
-        return torch.einsum("cij,cj->ci", Minv, r)
+    pcr = None
+    if (precond == "tridiag" and pairs.banded and pairs.n_heavy_pts == 0
+            and len(pairs.band_offsets) > 1 and pairs.band_offsets[1] == 1):
+        pcr = pcr_factor(*tridiag_from_band(blk, diag_S, pairs, dc))
+
+    if use_kernel:
+        dx_cam, cg_iters, ok = pcg_banded(blk, Ul, Minv, b, pairs, max_iters=cg_max_iters,
+                                          tol=cg_tol, x0=cg_x0, tridiag=pcr)
+        return dx_cam, back_substitute(B, Vinv_pts, dx_cam, plans), cg_iters, ok
+
+    if pairs.banded:
+        matvec = make_banded_matvec(blk, Ul, pairs, dc, heavy_term)
+    else:
+        matvec = make_compact_matvec(blk, Ul, pairs, dc, heavy_term)
+
+    if pcr is not None:
+        def apply_minv(r):
+            return pcr_apply(*pcr, r)
+    else:
+        def apply_minv(r):
+            return torch.einsum("cij,cj->ci", Minv, r)
 
     dx_cam, cg_iters, ok = pcg(matvec, b, apply_minv, max_iters=cg_max_iters, tol=cg_tol,
                                x0=cg_x0)
     return dx_cam, back_substitute(B, Vinv_pts, dx_cam, plans), cg_iters, ok
-
-
-def build_schur_t(*args, **kwargs):
-    raise NotImplementedError(
-        "build_schur_t (the dense T-major reduced system) is not ported yet: ROADMAP queue 1, "
-        "item 7 (dense reduced system)")
-
-
-def solve_schur_dense(*args, **kwargs):
-    raise NotImplementedError(
-        "solve_schur_dense is not ported yet: ROADMAP queue 1, item 7 (dense reduced system)")
