@@ -150,6 +150,7 @@ GOLDENS = os.path.join(HERE, "data", "goldens")
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # bytes/s and f32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
+L2_BYTES = 50 << 20
 PEAK_F32_OPS_S = 67e12
 # the pair plan of the ladybug-1723 ring stand-in, as the reference builds it
 EXPECTED_PLAN = {
@@ -179,6 +180,33 @@ def median_ms(torch, fn, reps=20, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(torch, fns, launches=20, reps=10):
+    """Device time of one call: ``launches`` calls, taken in turn from the
+    list ``fns`` (or all of the one callable), captured into a CUDA graph and
+    the replays timed by CUDA events. A call that the card finishes in a few
+    microseconds cannot be timed call by call from Python, where launching it
+    takes tens of microseconds: between two events one then reads the host's
+    pace. With one callable the replayed calls read the same inputs, and find
+    in the 50 MB L2 what fits there; over ``value_copies`` each call reads
+    its values from device memory, as a call inside a solve does."""
+    fns = fns if isinstance(fns, list) else [fns]
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(launches):
+            fns[i % len(fns)]()
+    return median_ms(torch, graph.replay, reps=reps, warmup=2) / launches
+
+
+def value_copies(vals, launches=20):
+    """``vals`` and clones of it, more than twice the L2's size in all (one
+    for each replayed launch at most)."""
+    n = min(launches, max(1, -(-2 * L2_BYTES // (vals.numel() * vals.element_size())) + 1))
+    return [vals] + [vals.clone() for _ in range(n - 1)]
 
 
 def bound(n_bytes, n_ops):
@@ -245,9 +273,11 @@ def main() -> int:
                                                 fused_linearize_assemble,
                                                 fused_linearize_assemble_plain)
     from tpu_ba_torch.kernels.pairblocks import fused_pair_blocks, fused_pair_blocks_plain
-    from tpu_ba_torch.kernels.pcg_band import (band_l2_bytes, fold_damp_prologue, pcg_banded,
-                                               pcg_banded_plain)
-    from tpu_ba_torch.kernels.segsum import sorted_segment_sum_t, sorted_segment_sum_t_plain
+    from tpu_ba_torch.kernels import pcg_band as pcg_band_mod
+    from tpu_ba_torch.kernels.pcg_band import (band_l2_bytes, exchange_floor, fold_damp_prologue,
+                                               pcg_banded, pcg_banded_plain, resident_cams)
+    from tpu_ba_torch.kernels.segsum import (fill_threads, group_log2, sorted_segment_sum_t,
+                                             sorted_segment_sum_t_plain)
     from tpu_ba_torch.kernels.slotband import slot_band_blocks, slot_band_blocks_plain
     from tpu_ba_torch.kernels.trackband import fused_track_blocks, fused_track_blocks_plain
     from tpu_ba_torch.residuals.robust import ROBUST_KINDS
@@ -307,36 +337,104 @@ def main() -> int:
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], abs_err)
         results[name]["max_rel_err"] = max(results[name]["max_rel_err"], rel_err)
 
-    # K1 on the payloads of the main path: point-keyed (12 = VtV|gp per
-    # linearization, 3 = matvec / back-substitution), camera-keyed (9 =
-    # matvec / rhs, 81 = preconditioner blocks)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    point_keys = (plans.pt_sorted_keys, P, plans.pt_start)
-    cam_keys = (problem.cam_idx, C, plans.cam_start)
-    for D, (keys, n_out, starts), side in [(12, point_keys, "point"), (3, point_keys, "point"),
-                                           (9, cam_keys, "camera"), (81, cam_keys, "camera")]:
-        vals = torch.randn((D, O), generator=gen, device=dev, dtype=torch.float32)
-        out = sorted_segment_sum_t(vals, keys, n_out, starts)
-        ref = sorted_segment_sum_t_plain(vals.double(), keys, n_out)
+    # K1. Device times from replayed CUDA graphs over copies of the values
+    # that rotate through more than twice the L2 (ms: each call reads its
+    # values from device memory, as in a solve, and that is what the bound
+    # assumes); ms_l2: the same on one copy, which the replays find in L2
+    # where it fits; ms_eager: one call launched from Python between two
+    # events, which for these sizes is the host's pace. Yardsticks, on the
+    # same clocks: scatter_add_ into a cleared output (for a call through
+    # perm: by the unsorted keys on the ungathered values, the one PyTorch
+    # call for the same function) and, through perm, the earlier route (an
+    # index gather into sorted order, then the kernel on the copy).
+    K1_MARGIN = 1.05     # the kernel may read this much above its yardstick (noise) and pass
+
+    def k1_case(what, tag, vals, keys, n_out, starts, longest, perm=None, unsorted_keys=None):
+        D, n_obs = vals.shape
+        kw1 = dict(longest=longest) if perm is None else dict(longest=longest, perm=perm)
+        out = sorted_segment_sum_t(vals, keys, n_out, starts, **kw1)
+        ref = sorted_segment_sum_t_plain(vals.double(), keys, n_out, perm=perm)
         a, r = err(out, ref)
-        record("segsum", a, r, f"({D},{O}) {side}-keyed")
-        ms = median_ms(torch, lambda: sorted_segment_sum_t(vals, keys, n_out, starts))
-        pms = median_ms(torch, lambda: sorted_segment_sum_t_plain(vals, keys, n_out))
-        # the one PyTorch call that computes the same sums, into a cleared output
+        record("segsum", a, r, what)
+        again = sorted_segment_sum_t(vals, keys, n_out, starts, **kw1)
+        if not torch.equal(out, again):
+            raise AssertionError(f"K1 {what}: two runs differ")
+        del out, ref, again
+        sets = value_copies(vals)
         lib_out = torch.empty((D, n_out), device=dev)
-        lib_idx = keys.long().expand(D, O)
-        lms = median_ms(torch, lambda: lib_out.zero_().scatter_add_(1, lib_idx, vals))
-        # values read once, CSR starts read once, sums written once; one add a value
-        b_ms, b_by = bound(4 * (D * O + n_out + 1 + D * n_out), D * O)
-        if D in (3, 9):  # one CG iteration reduces (3, O) by point and (9, O) by camera
-            results["segsum"]["ms"] += ms
-            results["segsum"]["plain_ms"] += pms
-            results["segsum"]["bound_ms"] += b_ms
-            results["segsum"]["library_ms"] = (results["segsum"]["library_ms"] or 0.0) + lms
-        say("kernel", f"K1 segsum ({D},{O})->{n_out} {side}-keyed: rel err {r:.2e} "
-                      f"(tol {TOL['segsum']:.0e}), abs {a:.2e}; {ms:.4f} ms, plain {pms:.4f} ms, "
-                      f"scatter_add_ {lms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        del lib_out, lib_idx
+        lib_idx = (keys if perm is None else unsorted_keys).long().expand(D, n_obs)
+
+        def kernel(v):
+            return sorted_segment_sum_t(v, keys, n_out, starts, **kw1)
+
+        def plain(v):
+            return sorted_segment_sum_t_plain(v, keys, n_out, perm=perm)
+
+        def lib(v):
+            return lib_out.zero_().scatter_add_(1, lib_idx, v)
+
+        fig = {"max_rel_err": r}
+        for key, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", lib)):
+            fig[key] = device_ms(torch, [lambda v=v: fn(v) for v in sets])
+            fig[key.replace("ms", "ms_l2")] = device_ms(torch, lambda: fn(vals))
+        fig["ms_eager"] = median_ms(torch, lambda: kernel(vals))
+        line = ""
+        if perm is not None:
+            perm64 = perm.long()
+
+            def old_route(v):
+                return sorted_segment_sum_t(v[:, perm64], keys, n_out, starts, longest=longest)
+
+            fig["index_then_kernel_ms"] = device_ms(torch, [lambda v=v: old_route(v)
+                                                            for v in sets])
+            line = f", index then K1 {fig['index_then_kernel_ms']:.4f} ms"
+        # values, CSR starts and perm read once, sums written once; one add a value
+        sched = group_log2(n_obs, n_out, D, longest, fill_threads(dev), perm is not None)
+        fig["bound_ms"], b_by = bound(
+            4 * (D * n_obs + (n_obs if perm is not None else 0) + n_out + 1 + D * n_out),
+            D * n_obs)
+        say("kernel", f"K1 segsum {what}: rel err {r:.2e} (tol {TOL['segsum']:.0e}), abs {a:.2e}; "
+                      f"{fig['ms']:.4f} ms over {len(sets)} rotating copies ({fig['ms_l2']:.4f} "
+                      f"from L2, {fig['ms_eager']:.4f} launched call by call from Python), "
+                      f"plain {fig['plain_ms']:.4f} ms{line}, scatter_add_"
+                      f"{' by the unsorted keys' if perm is not None else ''} "
+                      f"{fig['library_ms']:.4f} ms ({fig['library_ms_l2']:.4f} from L2), bound "
+                      f"{fig['bound_ms']:.4f} ms ({b_by}); schedule "
+                      f"{sched}")
+        for clock in ("ms", "ms_l2"):
+            lib_key = clock.replace("ms", "library_ms")
+            if not fig[clock] <= K1_MARGIN * fig[lib_key]:
+                raise AssertionError(f"K1 {what}: {fig[clock]:.4f} ms ({clock}) is slower than "
+                                     f"scatter_add_'s {fig[lib_key]:.4f} ms")
+        results["segsum"].setdefault("by_shape", {})[tag] = fig
+        return fig
+
+    # the payloads of the main path: point-keyed (12 = VtV|gp per
+    # linearization, 3 = matvec / back-substitution), as the solver calls them
+    # (the values in camera-sorted order, gathered through perm_pt) and on
+    # sorted values; camera-keyed (9 = matvec / rhs, 81 = preconditioner blocks)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k1_main = []
+    for D in (12, 3):
+        vals = torch.randn((D, O), generator=gen, device=dev, dtype=torch.float32)
+        k1_case(f"({D},{O})->{P} point-keyed, sorted values", f"({D},O)->point", vals,
+                plans.pt_sorted_keys, P, plans.pt_start, plans.pt_longest)
+        fig = k1_case(f"({D},{O})->{P} point-keyed through perm (one kernel)",
+                      f"({D},O)->point, perm", vals, plans.pt_sorted_keys, P, plans.pt_start,
+                      plans.pt_longest, perm=plans.perm_pt, unsorted_keys=problem.pt_idx)
+        if D == 3:
+            k1_main.append(fig)
+    for D in (9, 81):
+        vals = torch.randn((D, O), generator=gen, device=dev, dtype=torch.float32)
+        fig = k1_case(f"({D},{O})->{C} camera-keyed", f"({D},O)->camera", vals, problem.cam_idx, C,
+                      plans.cam_start, plans.cam_longest)
+        if D == 9:
+            k1_main.append(fig)
+    del vals
+    # one CG iteration of the matrix-free matvec, and one back-substitution
+    # and rhs of the main path: (3, O) by point through perm, (9, O) by camera
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        results["segsum"][key] = sum(f[key] for f in k1_main)
     # an empty segment comes out exactly 0
     keys = torch.tensor([0, 0, 2, 2, 2, 5], dtype=torch.int32, device=dev)
     starts = torch.tensor([0, 2, 2, 5, 5, 5, 6], dtype=torch.int32, device=dev)
@@ -548,6 +646,16 @@ def main() -> int:
             raise AssertionError(f"K4 fixed run at lam {lam:g}: {int(k5)} / {int(k5p)} "
                                  f"iterations, ok {bool(ok5)}")
         record("pcg_band", a, r, f"lam {lam:g}, 5 fixed iterations", tol5)
+        # the kernel's streaming form (bands that do not fit the shared
+        # memory of the card at once) on the same system: the same checks
+        x5s, k5s, ok5s = pcg_banded(blk, None, None, rhs, plan, max_iters=5, tol=0.0,
+                                    resident=False, **pkw)
+        a_s, r_s = err_rows(x5s.T.contiguous(), x5r.T.contiguous(), C)
+        if not (int(k5s) == 5 and bool(ok5s)):
+            raise AssertionError(f"K4 streaming, fixed run at lam {lam:g}: {int(k5s)} iterations")
+        record("pcg_band", a_s, r_s, f"lam {lam:g}, 5 fixed iterations, streaming form", tol5)
+        say("kernel", f"K4 pcg_band lam {lam:g}, streaming form: 5 fixed iterations, worst "
+                      f"column of x rel err {r_s:.2e} (resident form {r:.2e}; tol {tol5:.1e})")
         # to the golden's tolerance with room to converge
         budget = 5 * gmax
         xg, kg, okg = pcg_banded(blk, None, None, rhs, plan, max_iters=budget, tol=gtol, **pkw)
@@ -577,11 +685,52 @@ def main() -> int:
     def k4_call(**kw):
         return pcg_banded(blk, None, None, rhs, plan, **dict(pkw, **kw))
 
-    t_lo = median_ms(torch, lambda: k4_call(max_iters=5, tol=0.0))
-    t_hi = median_ms(torch, lambda: k4_call(max_iters=55, tol=0.0))
-    per_iter_ms = (t_hi - t_lo) / 50.0
-    kt = int(k4_call(max_iters=gmax, tol=gtol)[1])
-    results["pcg_band"]["ms"] = median_ms(torch, lambda: k4_call(max_iters=gmax, tol=gtol))
+    def pcg_times(call):
+        """(ms a CG iteration, ms for 5, ms for 55, ms to the golden's
+        tolerance, iterations) of a PCG kernel call in both of its forms:
+        {"resident": ..., "streaming": ...}; each form must take the same
+        number of iterations to the tolerance, within 2."""
+        out = {}
+        for form_name, resident in (("resident", True), ("streaming", False)):
+            lo = median_ms(torch, lambda: call(max_iters=5, tol=0.0, resident=resident))
+            hi = median_ms(torch, lambda: call(max_iters=55, tol=0.0, resident=resident))
+            n_it = int(call(max_iters=gmax, tol=gtol, resident=resident)[1])
+            whole = median_ms(torch, lambda: call(max_iters=gmax, tol=gtol, resident=resident))
+            out[form_name] = ((hi - lo) / 50.0, lo, hi, whole, n_it)
+        if abs(out["resident"][4] - out["streaming"][4]) > 2:
+            raise AssertionError(f"the PCG kernel's forms take {out['resident'][4]} and "
+                                 f"{out['streaming'][4]} iterations on one system")
+        return out
+
+    # the resident form is the one the wrapper picks for this band
+    form_cams = resident_cams(0, plan.band_offsets, C, dev)
+    if form_cams != 16:
+        raise AssertionError(f"the {PROBLEM} band does not fit the resident form at 16 cameras a "
+                             f"group: resident_cams = {form_cams}")
+    pcg_band_mod.reset_form_launches()
+    k4_call(max_iters=5, tol=0.0)
+    if pcg_band_mod.form_launches != {"resident": 1, "streaming": 0}:
+        raise AssertionError(f"K4 by default: {pcg_band_mod.form_launches}")
+    k4_t = pcg_times(k4_call)
+    per_iter_ms, t_lo, t_hi, results["pcg_band"]["ms"], kt = k4_t["resident"]
+    per_iter_str, s_lo, s_hi, results["pcg_band"]["ms_streaming"], _ = k4_t["streaming"]
+    if not per_iter_ms < per_iter_str:
+        raise AssertionError(f"K4: the resident form takes {per_iter_ms:.5f} ms a CG iteration, "
+                             f"the streaming form {per_iter_str:.5f}: the solves launch the slower")
+    # the floor of an iteration of the resident form: its two device-wide
+    # exchanges of partial sums (grid.sync() and a re-summation from L2) and
+    # nothing else, on the same grid with the same shared memory
+    n_ex = 2000
+    n_groups = -(-C // form_cams)
+    got_sum = float(exchange_floor(0, plan.band_offsets, C, n_ex, dev))
+    if got_sum != float(n_ex * n_groups):
+        raise AssertionError(f"exchange floor: the {n_ex} exchanges of {n_groups} blocks "
+                             f"summed to {got_sum}")
+    ex0 = median_ms(torch, lambda: exchange_floor(0, plan.band_offsets, C, 0, dev))
+    ex_ms = (median_ms(torch, lambda: exchange_floor(0, plan.band_offsets, C, n_ex, dev))
+             - ex0) / n_ex
+    results["pcg_band"]["floor_ms_per_cg_iteration"] = 2 * ex_ms
+    results["pcg_band"]["exchange_ms"] = ex_ms
     reads0 = pcg_mod.host_reads["cg"]
     results["pcg_band"]["plain_ms"] = median_ms(
         torch, lambda: pcg_banded_plain(blk, None, None, rhs, plan, max_iters=gmax, tol=gtol,
@@ -595,11 +744,19 @@ def main() -> int:
               (kt + 1) * (162 * (cells + 2 * C) + 12 * 9 * C) + 2 * 9 * 9 * 18 * C)
     results["pcg_band"]["iterations"] = kt
     results["pcg_band"]["ms_per_cg_iteration"] = per_iter_ms
-    say("kernel", f"K4 pcg_band lam 1, tol {gtol:g}, budget {gmax}: {results['pcg_band']['ms']:.4f}"
+    results["pcg_band"]["ms_per_cg_iteration_streaming"] = per_iter_str
+    say("kernel", f"K4 pcg_band lam 1, tol {gtol:g}, budget {gmax}, resident form ({n_groups} "
+                  f"blocks of {form_cams} cameras): {results['pcg_band']['ms']:.4f}"
                   f" ms for {kt} iterations, {per_iter_ms:.5f} ms a CG iteration ({t_lo:.4f} ms "
-                  f"for 5, {t_hi:.4f} ms for 55), plain {results['pcg_band']['plain_ms']:.3f} ms, "
+                  f"for 5, {t_hi:.4f} ms for 55); streaming form "
+                  f"{results['pcg_band']['ms_streaming']:.4f} ms, {per_iter_str:.5f} ms a CG "
+                  f"iteration ({s_lo:.4f} ms for 5, {s_hi:.4f} ms for 55); plain "
+                  f"{results['pcg_band']['plain_ms']:.3f} ms, "
                   f"bound {results['pcg_band']['bound_ms']:.4f} ms "
                   f"({results['pcg_band']['bound_by']})")
+    say("kernel", f"K4 floor of an iteration's synchronisation on this grid: {2 * ex_ms:.5f} ms "
+                  f"(two exchanges of partial sums at {ex_ms:.5f} ms each, three of them, the "
+                  f"streaming form's, {3 * ex_ms:.5f} ms)")
     del pd64, blk, blk64, mv64, Ul64
 
     # K8 on the same band: Ul, M⁻¹ and the PCR factors as solve_schur_sparse
@@ -633,6 +790,12 @@ def main() -> int:
             raise AssertionError(f"K8 fixed run, {what}: {int(k5)} / {int(k5p)} iterations, ok "
                                  f"{bool(ok5)} / {bool(ok5p)}")
         record(counter, a, r, f"{what}, 5 fixed iterations", tol5)
+        x5s, k5s, ok5s = pcg_banded(blk, Ul, None, rhs, pl, max_iters=5, tol=0.0, tridiag=pcr,
+                                    resident=False)
+        a_s, r_s = err_rows(x5s.T.contiguous(), x5r.T.contiguous(), n)
+        if not (int(k5s) == 5 and bool(ok5s)):
+            raise AssertionError(f"K8 streaming, fixed run, {what}: {int(k5s)} iterations")
+        record(counter, a_s, r_s, f"{what}, 5 fixed iterations, streaming form", tol5)
         budget = 5 * gmax
         xg, kg, okg = pcg_banded(blk, Ul, None, rhs, pl, max_iters=budget, tol=gtol, tridiag=pcr)
         xgp, kgp, okgp = pcg_banded_plain(blk, Ul, None, rhs, pl, max_iters=budget, tol=gtol,
@@ -642,7 +805,7 @@ def main() -> int:
         true_res_p = ((rhs64 - mv(xgp.double())).norm() / rhs64.norm()).item()
         kg, kgp, okg, okgp = int(kg), int(kgp), bool(okg), bool(okgp)
         say("kernel", f"K8 tridiag {what}: 5 fixed iterations, worst column of x rel err {r:.2e} "
-                      f"(plain f32 {plain5:.2e}; tol {tol5:.1e}); at tol {gtol:g}, budget "
+                      f"(streaming form {r_s:.2e}; plain f32 {plain5:.2e}; tol {tol5:.1e}); at tol {gtol:g}, budget "
                       f"{budget}: {kg} iterations (plain {kgp}), ok {okg} (plain {okgp}), true "
                       f"residual in f64 {true_res:.3e} (plain {true_res_p:.3e})")
         if not (okg and okgp and kg < budget and abs(kg - kgp) <= max(3, 0.2 * kgp)):
@@ -723,12 +886,10 @@ def main() -> int:
         return pcg_banded(sysd["blk"], sysd["Ul"], None, sysd["rhs"], plan, tridiag=sysd["pcr"],
                           **kw)
 
-    t_lo = median_ms(torch, lambda: k8_call(max_iters=5, tol=0.0))
-    t_hi = median_ms(torch, lambda: k8_call(max_iters=55, tol=0.0))
-    k8_per_iter = (t_hi - t_lo) / 50.0
-    kt8 = int(k8_call(max_iters=gmax, tol=gtol)[1])
     res8 = results["pcg_band_given"]
-    res8["ms"] = median_ms(torch, lambda: k8_call(max_iters=gmax, tol=gtol))
+    k8_t = pcg_times(k8_call)
+    k8_per_iter, t_lo, t_hi, res8["ms"], kt8 = k8_t["resident"]
+    k8_per_iter_str, s_lo, s_hi, res8["ms_streaming"], _ = k8_t["streaming"]
     reads0 = pcg_mod.host_reads["cg"]
     res8["plain_ms"] = median_ms(
         torch, lambda: pcg_banded_plain(sysd["blk"], sysd["Ul"], None, sysd["rhs"], plan,
@@ -744,12 +905,19 @@ def main() -> int:
               (kt8 + 1) * (162 * (cells + C) + 162 * C * (2 * levels + 1) + 12 * 9 * C))
     res8["iterations"] = kt8
     res8["ms_per_cg_iteration"] = k8_per_iter
+    res8["ms_per_cg_iteration_streaming"] = k8_per_iter_str
+    levels_floor = (2 + levels) * ex_ms
+    res8["floor_ms_per_cg_iteration"] = levels_floor
     res8["pcr_levels"] = levels
     res8["pcr_factor_ms"] = factor_ms
-    say("kernel", f"K8 pcg_band tridiag lam 1, tol {gtol:g}, budget {gmax}: {res8['ms']:.4f} ms for "
+    say("kernel", f"K8 pcg_band tridiag lam 1, tol {gtol:g}, budget {gmax}, resident form: "
+                  f"{res8['ms']:.4f} ms for "
                   f"{kt8} iterations ({levels} PCR levels; K4 took {kt} on the same system), "
                   f"{k8_per_iter:.5f} ms a CG iteration ({t_lo:.4f} ms for 5, {t_hi:.4f} ms for "
-                  f"55; K4 {per_iter_ms:.5f}), plain {res8['plain_ms']:.3f} ms, bound "
+                  f"55; K4 {per_iter_ms:.5f}; floor of its {2 + levels} exchanges "
+                  f"{levels_floor:.5f}); streaming form {res8['ms_streaming']:.4f} ms, "
+                  f"{k8_per_iter_str:.5f} ms a CG iteration ({s_lo:.4f} ms for 5, {s_hi:.4f} ms "
+                  f"for 55); plain {res8['plain_ms']:.3f} ms, bound "
                   f"{res8['bound_ms']:.4f} ms ({res8['bound_by']}); PCG working set "
                   f"{band_l2_bytes(plan, 9, levels) / 2**20:.2f} MiB; pcr_factor "
                   f"{factor_ms:.3f} ms a call between CUDA events (about a thousand small ops "
@@ -796,11 +964,20 @@ def main() -> int:
     _, effect = err_rows(x5n.T.contiguous(), x5r.T.contiguous(), lp.n_cameras)
     tol5 = max(TOL["pcg_band"], BAND_PLAIN_FACTOR * plain5)
     record("pcg_band", a, r, "with leftovers, lam 1, 5 fixed iterations", tol5)
+    left_cams = resident_cams(0, lplan.band_offsets, lp.n_cameras, dev)
+    x5s, _, _ = pcg_banded(lblk, None, None, lrhs, lplan, max_iters=5, tol=0.0, resident=False,
+                           **lkw)
+    a_s, r_s = err_rows(x5s.T.contiguous(), x5r.T.contiguous(), lp.n_cameras)
+    record("pcg_band", a_s, r_s, "with leftovers, lam 1, 5 fixed iterations, streaming form", tol5)
+    if left_cams != 8:
+        raise AssertionError(f"a band of {len(lplan.band_offsets)} offsets should fit the resident "
+                             f"form at 8 cameras a group, not {left_cams}")
     xg, kg, okg = pcg_banded(lblk, None, None, lrhs, lplan, max_iters=5 * gmax, tol=gtol, **lkw)
     _, kgp, okgp = pcg_banded_plain(lblk, None, None, lrhs, lplan, max_iters=5 * gmax, tol=gtol,
                                     **lkw)
-    say("left", f"K4 with leftovers, lam 1: 5 fixed iterations, worst column of x rel err {r:.2e} "
-                f"(plain f32 {plain5:.2e}; tol {tol5:.1e}; leaving the leftovers out moves x by "
+    say("left", f"K4 with leftovers, lam 1 (resident form, groups of {left_cams} cameras): 5 fixed "
+                f"iterations, worst column of x rel err {r:.2e} "
+                f"(streaming form {r_s:.2e}; plain f32 {plain5:.2e}; tol {tol5:.1e}; leaving the leftovers out moves x by "
                 f"{effect:.2e}); at tol {gtol:g}: {int(kg)} iterations ok {bool(okg)} (plain "
                 f"{int(kgp)} ok {bool(okgp)})")
     if not (bool(okg) and bool(okgp) and abs(int(kg) - int(kgp)) <= max(3, 0.2 * int(kgp))
@@ -810,6 +987,7 @@ def main() -> int:
     for precond, counter in (("jacobi", "pcg_band"), ("tridiag", "pcg_band_given")):
         pcg_mod.reset_host_reads()
         _lib.reset_launches()
+        pcg_band_mod.reset_form_launches()
         lres = solve(lp, LMConfig(linear_solver="schur_sparse_pallas", precond=precond,
                                   **dict(golden_cfg, max_iters=5)))
         hist = [lres.initial_cost.item()] + lres.cost_history.tolist()
@@ -818,6 +996,7 @@ def main() -> int:
                     f"{_lib.launches[counter]} PCG kernel launches, host reads "
                     f"{dict(pcg_mod.host_reads)}")
         if not (_lib.launches[counter] == 5 and pcg_mod.host_reads["cg"] == 0
+                and pcg_band_mod.form_launches == {"resident": 5, "streaming": 0}
                 and all(math.isfinite(v) for v in hist)
                 and all(b <= a for a, b in zip(hist, hist[1:]))):
             raise AssertionError(f"solve over a band with leftovers, precond {precond}: {hist}, "
@@ -833,11 +1012,17 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         pcg_mod.reset_host_reads()
         _lib.reset_launches()
+        pcg_band_mod.reset_form_launches()
         t0 = time.perf_counter()
         res = solve(prob, cfg)
         final = res.cost.item()
         first_s = time.perf_counter() - t0
         launches = dict(_lib.launches)
+        forms = dict(pcg_band_mod.form_launches)
+        n_pcg = launches["pcg_band"] + launches["pcg_band_given"]
+        if forms != {"resident": n_pcg, "streaming": 0}:
+            raise AssertionError(f"{name}: the PCG kernel ran {forms}, expected its resident "
+                                 f"form on each of its {n_pcg} launches")
         reads = dict(pcg_mod.host_reads)
         peak = torch.cuda.max_memory_allocated()
         missing = [k for k in kernels if launches[k] == 0]
@@ -859,7 +1044,7 @@ def main() -> int:
         say("solve", f"final cost {final:.6f} (repeat {final2:.6f}, cg_total {cg_total2}), "
                      f"golden {gold['final_cost']:.6f}, gap {100 * gap:+.5f}% (limit 1%); "
                      f"host reads {reads['cg']} CG + {reads['lm']} LM; peak device memory "
-                     f"{peak / 2**20:.1f} MiB; launches {launches}")
+                     f"{peak / 2**20:.1f} MiB; launches {launches}; PCG kernel forms {forms}")
         if not (math.isfinite(final) and abs(gap) < 0.01):
             raise AssertionError(f"{name}: final cost {final} is not within 1% of "
                                  f"{gold['final_cost']}")
@@ -988,27 +1173,24 @@ def main() -> int:
     if (vplan.banded or vplan.track is not None or vplan.slot is not None
             or vplan.ci_start is None or vplan.cj_start is None):
         raise AssertionError("the community plan is banded or lacks the compact matvec's starts")
-    # K1 at the compact matvec's shapes: (9, k_pad) by row camera and by column camera
+    # K1 at the compact matvec's shapes, as make_compact_matvec calls it:
+    # (9, k_pad) by row camera on sorted values, and by column camera through
+    # the plan's cj-sorted permutation
     kp = vplan.k_pad
-    for keys, starts, side in ((vplan.seg_ci, vplan.ci_start, "seg_ci"),
-                               (vplan.cj_keys, vplan.cj_start, "cj_keys")):
-        vals = torch.randn((9, kp), generator=gen, device=dev)
-        out = sorted_segment_sum_t(vals, keys, Cv + 1, starts)
-        a, r = err(out, sorted_segment_sum_t_plain(vals.double(), keys, Cv + 1))
-        record("segsum", a, r, f"(9,{kp}) by {side}")
-        ms = median_ms(torch, lambda: sorted_segment_sum_t(vals, keys, Cv + 1, starts))
-        pms = median_ms(torch, lambda: sorted_segment_sum_t_plain(vals, keys, Cv + 1))
-        lib_out = torch.empty((9, Cv + 1), device=dev)
-        lib_idx = keys.long().expand(9, kp)
-        lms = median_ms(torch, lambda: lib_out.zero_().scatter_add_(1, lib_idx, vals))
-        b_ms, b_by = bound(4 * (9 * kp + Cv + 2 + 9 * (Cv + 1)), 9 * kp)
-        for key, v in (("ms_venice", ms), ("plain_ms_venice", pms), ("library_ms_venice", lms),
-                       ("bound_ms_venice", b_ms)):
-            results["segsum"][key] = results["segsum"].get(key, 0.0) + v
-        say("venice", f"K1 segsum (9,{kp})->{Cv + 1} by {side}: rel err {r:.2e} (tol "
-                      f"{TOL['segsum']:.0e}); {ms:.4f} ms, plain {pms:.4f} ms, scatter_add_ "
-                      f"{lms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        del vals, out, lib_out, lib_idx
+    vals = torch.randn((9, kp), generator=gen, device=dev)
+    cj_unsorted = torch.empty_like(vplan.cj_keys)
+    cj_unsorted[vplan.seg_perm_cj.long()] = vplan.cj_keys
+    k1_venice = [
+        k1_case(f"(9,{kp})->{Cv + 1} by seg_ci (venice-1778-community)", "venice (9,k_pad) by ci",
+                vals, vplan.seg_ci, Cv + 1, vplan.ci_start, vplan.ci_longest),
+        k1_case(f"(9,{kp})->{Cv + 1} by cj_keys through seg_perm_cj (venice-1778-community)",
+                "venice (9,k_pad) by cj, perm", vals, vplan.cj_keys, Cv + 1, vplan.cj_start,
+                vplan.cj_longest, perm=vplan.seg_perm_cj, unsorted_keys=cj_unsorted)]
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        results["segsum"][f"{key}_venice"] = sum(f[key] for f in k1_venice)
+    say("venice", f"longest segment by seg_ci {vplan.ci_longest}, by cj_keys {vplan.cj_longest} "
+                  f"(mean {kp / (Cv + 1):.1f})")
+    del vals, cj_unsorted
     # K7 over all pairs, on the first linearization; the f64 plain version in chunks of pairs
     VB = linearize(vp, vplans)
     vpd = pairs_mod.precompute_pair_data(VB, vplan)
@@ -1052,9 +1234,16 @@ def main() -> int:
     # outputs' own units (K2's U entries reach ~4e11, so its absolute error is
     # large). launches: by the schur_sparse_pallas solve of ladybug-1723, the
     # path of K1–K7, and for K8 by the same solve with precond="tridiag";
-    # launches_<path>: by each other path's first solve. The *_venice figures
-    # of K1 (both keyed sums of one compact matvec) and K7 are at
-    # venice-1778-community's shapes.
+    # launches_<path>: by each other path's first solve. K1's ms, plain_ms,
+    # library_ms and bound_ms are the two sums of a CG iteration or a
+    # back-substitution on ladybug-1723 ((3, O) by point through perm, (9, O)
+    # by camera), each call reading its values from device memory; by_shape
+    # holds every call timed, with the same from L2. The *_venice figures of K1
+    # (both keyed sums of one compact matvec) and K7 are at
+    # venice-1778-community's shapes. K4's and K8's ms are the resident form's
+    # (the one the solves launch), ms_streaming the streaming form's on the
+    # same system; floor_ms_per_cg_iteration is the measured time of an
+    # iteration's device-wide exchanges alone.
     sparse = path_launches["schur_sparse_pallas"]
     print(json.dumps({"kernels": [
         dict({"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],

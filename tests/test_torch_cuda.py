@@ -37,8 +37,10 @@ from tpu_ba_torch.kernels.linearize import (fused_cost, fused_cost_plain,
                                             fused_linearize_assemble,
                                             fused_linearize_assemble_plain)
 from tpu_ba_torch.kernels.pairblocks import fused_pair_blocks, fused_pair_blocks_plain
+from tpu_ba_torch.kernels import pcg_band as pcg_band_mod
 from tpu_ba_torch.kernels.pcg_band import fold_damp_prologue, pcg_banded, pcg_banded_plain
-from tpu_ba_torch.kernels.segsum import sorted_segment_sum_t, sorted_segment_sum_t_plain
+from tpu_ba_torch.kernels.segsum import (BLOCK_LOG2, group_log2, sorted_segment_sum_t,
+                                         sorted_segment_sum_t_plain)
 from tpu_ba_torch.kernels.slotband import slot_band_blocks, slot_band_blocks_plain
 from tpu_ba_torch.kernels.trackband import fused_track_blocks, fused_track_blocks_plain
 from tpu_ba_torch.solver import pairs as pairs_mod
@@ -47,7 +49,7 @@ from tpu_ba_torch.solver import slots as slots_mod
 from tpu_ba_torch.solver.batched_linalg import inv_spd_small
 from tpu_ba_torch.solver.lm import build_solver_plans, solve
 from tpu_ba_torch.solver.normal import assemble, damp_blocks
-from tpu_ba_torch.solver.plans import build_plans
+from tpu_ba_torch.solver.plans import build_plans, pt_segsum_t
 from tpu_ba_torch.solver.schur import inv3x3_rows, schur_rhs
 from tpu_ba_torch.solver.tridiag import pcr_factor, tridiag_from_band
 
@@ -72,6 +74,9 @@ def _rel_err(out, ref):
     (8192, 300, 81, True),     # skewed lengths, wide D
     (1000, 1, 1, False),       # one segment
     (777, 2000, 9, False),     # more segments than observations: many empty
+    (20000, 3, 9, False),      # runs of thousands: longer than a block's stride of 512
+    (4099, 40, 4, True),       # rows of 4,099 floats: every row's runs start unaligned
+    (3000, 700, 7, False),     # a row count that only 1 divides
 ])
 def test_segsum_kernel_matches_plain(dev, O, N, D, skew):
     rng = np.random.default_rng(O + N)
@@ -92,6 +97,108 @@ def test_segsum_kernel_matches_plain(dev, O, N, D, skew):
     assert _rel_err(out, ref) <= 1e-5
     empty = np.diff(starts) == 0
     assert torch.all(out[:, torch.tensor(empty, device=dev)] == 0)
+
+
+@pytest.mark.parametrize("schedule", [0, 1, 3, 5, BLOCK_LOG2])
+@pytest.mark.parametrize("with_perm", [False, True], ids=["sorted", "perm"])
+def test_segsum_kernel_schedules_agree(dev, schedule, with_perm):
+    """Every schedule (lanes per segment, or a block per segment) on runs of
+    0 to ~900 observations that start at any alignment, with and without the
+    fused gather: each within 1e-5 of f64, empty segments exactly 0, the same
+    bits on a second run."""
+    rng = np.random.default_rng(11)
+    N, D = 150, 6
+    lens = rng.integers(0, 40, N)
+    lens[::17] = rng.integers(300, 900, len(lens[::17]))
+    lens[5] = 0
+    O = int(lens.sum())
+    keys = np.repeat(np.arange(N), lens)
+    starts = torch.tensor(np.concatenate([[0], np.cumsum(lens)]).astype(np.int32), device=dev)
+    vals = torch.tensor(rng.standard_normal((D, O)), dtype=torch.float32, device=dev)
+    keys_t = torch.tensor(keys, dtype=torch.int32, device=dev)
+    perm = torch.tensor(rng.permutation(O).astype(np.int32), device=dev) if with_perm else None
+    out = sorted_segment_sum_t(vals, keys_t, N, starts, perm=perm, schedule=schedule)
+    ref = sorted_segment_sum_t_plain(vals.double(), keys_t, N, perm=perm)
+    assert _rel_err(out, ref) <= 1e-5
+    assert torch.all(out[:, torch.tensor(lens == 0, device=dev)] == 0)
+    assert torch.equal(out, sorted_segment_sum_t(vals, keys_t, N, starts, perm=perm,
+                                                 schedule=schedule))
+
+
+@pytest.mark.parametrize("stretch,want", [(394, 5), (60000, BLOCK_LOG2)], ids=["even", "skewed"])
+@pytest.mark.parametrize("with_perm", [False, True], ids=["sorted", "perm"])
+def test_segsum_kernel_schedule_from_longest(dev, stretch, want, with_perm):
+    """The wrapper's schedule from the plan's longest segment: even camera
+    runs of 394 take a warp each, one run of 60,000 among them brings blocks;
+    either way the sums are those of the plain version."""
+    N, D = 1723, 9
+    lens = np.full(N, 394)
+    lens[800] = stretch
+    O = int(lens.sum())
+    assert group_log2(O, N, D, int(lens.max()), gathered=with_perm) == want
+    rng = np.random.default_rng(stretch)
+    starts = torch.tensor(np.concatenate([[0], np.cumsum(lens)]).astype(np.int32), device=dev)
+    keys_t = torch.tensor(np.repeat(np.arange(N), lens).astype(np.int32), device=dev)
+    vals = torch.tensor(rng.standard_normal((D, O)), dtype=torch.float32, device=dev)
+    perm = torch.tensor(rng.permutation(O).astype(np.int32), device=dev) if with_perm else None
+    out = sorted_segment_sum_t(vals, keys_t, N, starts, perm=perm, longest=int(lens.max()))
+    forced = sorted_segment_sum_t(vals, keys_t, N, starts, perm=perm, schedule=want)
+    assert torch.equal(out, forced)
+    assert _rel_err(out, sorted_segment_sum_t_plain(vals.double(), keys_t, N, perm=perm)) <= 1e-5
+
+
+@pytest.mark.parametrize("D,O,N", [(3, 678912, 156502), (12, 678912, 156502),
+                                   (9, 665600, 1779)],
+                         ids=["back_substitution", "point_blocks", "compact_matvec_by_cj"])
+def test_segsum_kernel_gathers_through_perm(dev, D, O, N):
+    """The fused gather at the main paths' shapes: the point-keyed sums of
+    ladybug-1723's camera-sorted observations, and the column-camera sum of
+    venice-1778-community's compact matvec. One launch, no gathered copy; the
+    bits of the old route (index, then the kernel on the copy) where a group
+    of lanes walks a run either way; a block reads a gathered run by scalars
+    and a contiguous one by 16-byte loads, another order of the same sum."""
+    rng = np.random.default_rng(D)
+    keys_unsorted = rng.integers(0, N, O)
+    perm = np.argsort(keys_unsorted, kind="stable")
+    keys = keys_unsorted[perm]
+    starts = torch.tensor(np.searchsorted(keys, np.arange(N + 1)).astype(np.int32), device=dev)
+    keys_t = torch.tensor(keys, dtype=torch.int32, device=dev)
+    perm_t = torch.tensor(perm.astype(np.int32), device=dev)
+    vals = torch.tensor(rng.standard_normal((D, O)), dtype=torch.float32, device=dev)
+    before = _lib.launches["segsum"]
+    out = sorted_segment_sum_t(vals, keys_t, N, starts, perm=perm_t)
+    assert _lib.launches["segsum"] == before + 1
+    ref = sorted_segment_sum_t_plain(vals.double(), keys_t, N, perm=perm_t)
+    assert out.shape == (D, N) and _rel_err(out, ref) <= 1e-5
+    old_route = sorted_segment_sum_t(vals[:, perm_t.long()], keys_t, N, starts)
+    if group_log2(O, N, D) != BLOCK_LOG2:
+        assert torch.equal(out, old_route)
+    assert _rel_err(out, old_route.double()) <= 1e-6
+    with pytest.raises(TypeError):          # an int64 permutation: the kernel reads int32
+        sorted_segment_sum_t(vals, keys_t, N, starts, perm=perm_t.long())
+    with pytest.raises(ValueError):         # a permutation of another length
+        sorted_segment_sum_t(vals, keys_t, N, starts, perm=perm_t[:-1])
+
+
+def test_point_keyed_sum_is_one_kernel(dev):
+    """``pt_segsum_t`` on the card: K1 once, reading through ``perm_pt``,
+    and no other device kernel (no ``index`` gather before it)."""
+    p, C = _problem(dev)
+    plans = build_plans(p.cam_idx, p.pt_idx, C, p.n_points)
+    vals = torch.randn((12, p.obs_2d.shape[0]), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(4))
+    pt_segsum_t(plans, vals, p.pt_idx, p.n_points)      # builds and loads the library
+    torch.cuda.synchronize()
+    before = _lib.launches["segsum"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = pt_segsum_t(plans, vals, p.pt_idx, p.n_points)
+        torch.cuda.synchronize()
+    assert _lib.launches["segsum"] == before + 1
+    ops = [e.key for e in prof.key_averages() if e.key.startswith("aten::")]
+    assert not any("index" in k or "gather" in k for k in ops), ops
+    ref = sorted_segment_sum_t_plain(vals.double(), p.pt_idx, p.n_points)
+    assert _rel_err(out, ref) <= 1e-5
 
 
 def _problem(dev, n_cameras=8):
@@ -426,6 +533,112 @@ def test_pcg_kernel_matches_plain(dev, case, plan_kw):
     # no budget: x0 comes back
     (x4, k4, _), _ = _pcg_both(plan, blk, U_t, b, lam, max_iters=0, tol=1e-6, x0=x)
     assert int(k4) == 0 and torch.equal(x4, x)
+
+
+def _forms_operands(dev, case, kind, plan_kw):
+    """Arguments of ``pcg_banded`` for the fold-damp form (K4) or K8's two
+    forms on a case of ``_incidence``."""
+    s = _given_inputs(dev, case, **plan_kw)
+    if kind == "fold":
+        return s, (s["blk"], None, None, s["b"], s["plan"]), dict(
+            U_t=s["U_t"], lam=s["lam"], diag_floor=FLOOR, diag_ceil=CEIL)
+    if kind == "given":
+        return s, (s["blk"], s["Ul"], s["Minv"], s["b"], s["plan"]), {}
+    assert s["pcr"] is not None
+    return s, (s["blk"], s["Ul"], None, s["b"], s["plan"]), dict(tridiag=s["pcr"])
+
+
+@pytest.mark.parametrize("kind", ["fold", "given", "tridiag"])
+@pytest.mark.parametrize("case,plan_kw,fits", [
+    ("ring", {}, True), ("gappy", dict(slots=True), True), ("wide", dict(slots=True), True),
+    ("leftover", {}, True), ("long", {}, False)],
+    ids=["ring_wraparound", "gappy", "wide_13_blocks", "leftovers", "30011_cameras"])
+def test_pcg_kernel_resident_and_streaming_forms_agree(dev, case, plan_kw, fits, kind):
+    """K4 and both forms of K8 in the kernel's resident form (the band in
+    shared memory, two exchanges an iteration) and its streaming form: the
+    same iteration count, x to 1e-4 of max|x| after 5 fixed iterations (the
+    tolerance held against the plain version) and to 1e-3 at convergence,
+    each against the plain version, the same bits on a second run. Where the
+    band does not fit the card at once, ``resident=True`` raises and the
+    default takes the streaming form."""
+    s, args, kw = _forms_operands(dev, case, kind, plan_kw)
+    plan = s["plan"]
+    form = {"fold": 0, "given": 1, "tridiag": 2}[kind]
+    cams = pcg_band_mod.resident_cams(form, plan.band_offsets, plan.n_cameras, dev)
+    assert (cams > 0) == fits
+    if case == "leftover":
+        assert cams == 8                       # 63 items: too wide for groups of 16 cameras
+    pcg_band_mod.reset_form_launches()
+    if not fits:
+        with pytest.raises(ValueError, match="does not fit"):
+            pcg_banded(*args, max_iters=5, tol=0.0, resident=True, **kw)
+        x, k, ok = pcg_banded(*args, max_iters=5, tol=0.0, **kw)
+        xs, ks, oks = pcg_banded(*args, max_iters=5, tol=0.0, resident=False, **kw)
+        assert pcg_band_mod.form_launches == {"resident": 0, "streaming": 2}
+        assert torch.equal(x, xs) and int(k) == int(ks) == 5
+        return
+    x5, k5, ok5 = pcg_banded(*args, max_iters=5, tol=0.0, resident=True, **kw)
+    x5d, _, _ = pcg_banded(*args, max_iters=5, tol=0.0, **kw)        # the default is resident
+    x5s, k5s, ok5s = pcg_banded(*args, max_iters=5, tol=0.0, resident=False, **kw)
+    assert pcg_band_mod.form_launches == {"resident": 2, "streaming": 1}
+    x5p, k5p, ok5p = pcg_banded_plain(*args, max_iters=5, tol=0.0, **kw)
+    assert int(k5) == int(k5s) == int(k5p) == 5 and bool(ok5) and bool(ok5s) and bool(ok5p)
+    assert torch.equal(x5, x5d)
+    assert _rel_err(x5, x5s.double()) <= 1e-4 and _rel_err(x5, x5p.double()) <= 1e-4
+    tol = torch.tensor(1e-5, device=dev)
+    x, k, ok = pcg_banded(*args, max_iters=300, tol=tol, resident=True, **kw)
+    xs, ks, oks = pcg_banded(*args, max_iters=300, tol=tol, resident=False, **kw)
+    xp, kp, okp = pcg_banded_plain(*args, max_iters=300, tol=tol, **kw)
+    slack = 2 if kind != "tridiag" else max(3, 0.2 * int(kp))
+    assert bool(ok) and bool(oks) and bool(okp) and 0 < int(k) < 300
+    assert abs(int(k) - int(ks)) <= slack and abs(int(k) - int(kp)) <= slack, (k, ks, kp)
+    assert _rel_err(x, xs.double()) <= 1e-3 and _rel_err(x, xp.double()) <= 1e-3
+    x2, k2, _ = pcg_banded(*args, max_iters=300, tol=tol, resident=True, **kw)
+    assert torch.equal(x, x2) and int(k) == int(k2)
+    # a warm start in both forms: no iteration, x0 comes back
+    for resident in (True, False):
+        x3, k3, ok3 = pcg_banded(*args, max_iters=300, tol=1e-3, x0=x, resident=resident, **kw)
+        assert int(k3) == 0 and bool(ok3) and torch.equal(x3, x)
+    # from a random start the forms still agree (x0 goes through the first matvec)
+    x0 = torch.randn(s["b"].shape, device=dev, generator=torch.Generator(device=dev).manual_seed(2))
+    xa, ka, _ = pcg_banded(*args, max_iters=5, tol=0.0, x0=x0, resident=True, **kw)
+    xb, kb, _ = pcg_banded(*args, max_iters=5, tol=0.0, x0=x0, resident=False, **kw)
+    xc, _, _ = pcg_banded_plain(*args, max_iters=5, tol=0.0, x0=x0, **kw)
+    assert int(ka) == int(kb) == 5
+    # S x0 of a random x0 cancels against b over many orders of magnitude, and
+    # five f32 steps amplify the summation order: either form lands 0.9e-4 to
+    # 1.2e-4 of max|x| from f64 on the leftover case, varying from run to run
+    # (the system is assembled by plain scatter_add_, whose atomics round in
+    # any order). A fault in how x0 is staged would move x by its own size:
+    # each form is held to the plain version in f64 within 1e-3, the file's
+    # tolerance at convergence, or ten times the plain f32 version's own error
+    def dbl(v):
+        if isinstance(v, tuple):
+            return tuple(dbl(t) for t in v)
+        return v.double() if isinstance(v, torch.Tensor) and v.is_floating_point() else v
+
+    xr, _, _ = pcg_banded_plain(*[dbl(v) for v in args], max_iters=5, tol=0.0, x0=x0.double(),
+                                **{k: dbl(v) for k, v in kw.items()})
+    held = max(1e-3, 10.0 * _rel_err(xc, xr))
+    assert _rel_err(xa, xr) <= held and _rel_err(xb, xr) <= held, (
+        _rel_err(xa, xr), _rel_err(xb, xr), held)
+
+
+@pytest.mark.parametrize("resident", [True, False], ids=["resident", "streaming"])
+def test_pcg_kernel_forms_freeze_alike_on_breakdown(dev, resident):
+    """A negated U makes S negative definite, a negated D⁻¹ the
+    preconditioner: both forms stop not-ok after one counted iteration with x
+    at x0, as the plain version does."""
+    plan, blk, U_t, b, lam = _pcg_inputs(dev, "ring")
+    x0 = torch.randn(b.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    x, k, ok = pcg_banded(blk, None, None, b, plan, max_iters=50, tol=1e-4, x0=x0, U_t=-U_t,
+                          lam=lam, diag_floor=FLOOR, diag_ceil=CEIL, resident=resident)
+    assert not bool(ok) and int(k) == 1 and torch.equal(x, x0)
+    s = _given_inputs(dev, "ring")
+    P, Q, D = s["pcr"]
+    x, k, ok = pcg_banded(s["blk"], s["Ul"], None, s["b"], s["plan"], max_iters=50, tol=1e-4,
+                          x0=x0, tridiag=(P, Q, -D), resident=resident)
+    assert not bool(ok) and int(k) == 1 and torch.equal(x, x0)
 
 
 def test_pcg_kernel_breakdown_freezes_the_iterate(dev):

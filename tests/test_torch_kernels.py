@@ -21,11 +21,13 @@ from tpu_ba.kernels.linearize import fused_linearize_assemble as ref_linearize
 from tpu_ba.kernels.segsum import build_segsum_plan
 from tpu_ba.kernels.segsum import sorted_segment_sum_t as ref_segsum_t
 from tpu_ba.solver.plans import build_plans as ref_build_plans
+from tpu_ba.solver.plans import pt_segsum_t as ref_pt_segsum_t
 from tpu_ba_torch.core import problem_from_numpy
 from tpu_ba_torch.kernels import _lib
 from tpu_ba_torch.kernels.linearize import fused_cost, fused_linearize_assemble
-from tpu_ba_torch.kernels.segsum import group_log2, sorted_segment_sum_t
-from tpu_ba_torch.solver.plans import build_plans
+from tpu_ba_torch.kernels.segsum import (BLOCK_LOG2, group_log2, sorted_segment_sum_t,
+                                         sorted_segment_sum_t_plain)
+from tpu_ba_torch.solver.plans import build_plans, pt_segsum_t
 
 # one intra-op thread: the suite runs in parallel worker processes, and
 # torch's default of a thread per core oversubscribes the machine
@@ -108,10 +110,87 @@ def test_plans_csr_starts_describe_the_sorted_keys():
 
 
 def test_group_width_follows_mean_segment_length():
-    assert group_log2(678912, 1723) == 5      # cameras: ~394 per segment, a full warp
-    assert group_log2(678912, 156502) == 1    # points: ~4.3 per segment, 2 lanes
-    assert group_log2(100, 100) == 0
-    assert group_log2(0, 0) == 0
+    assert group_log2(678912, 1723, 9) == BLOCK_LOG2    # cameras: ~394 per segment, a block each
+    assert group_log2(665600, 1779, 9) == BLOCK_LOG2    # the compact matvec's camera sums
+    assert group_log2(678912, 156502, 12) == 1   # points: ~4.3 per segment, 4 row tiles: two lanes
+    assert group_log2(678912, 156502, 3) == 3    # one row tile: 8 lanes, to fill the card
+    assert group_log2(1 << 19, 1 << 12, 9) == BLOCK_LOG2    # from a mean of 128 on
+    assert group_log2(1 << 19, 1 << 13, 9) == 5  # mean 64: 16 lanes, doubled to fill the card
+    assert group_log2(40_000_000, 1_000_000, 9) == 4   # mean 40, a full grid: a lane per 4
+    assert group_log2(4096, 37, 9) == 5          # a small grid takes the whole warp
+    assert group_log2(100, 100, 9) == 5
+    assert group_log2(0, 0, 9) == 0
+
+
+@pytest.mark.parametrize("n_obs,n_out,n_rows,longest,want", [
+    (678912, 1723, 9, 579, 5),              # ladybug-1723's camera runs: a warp each, no blocks
+    (678912, 1723, 81, 579, 5),
+    (678912, 1723, 9, 1024, BLOCK_LOG2),    # one run of 2.6 × the mean among them: blocks
+    (665600, 1779, 9, 57000, BLOCK_LOG2),   # one camera with a tenth of all segments
+    (678912, 156502, 12, 198, 1),           # point runs: their longest changes nothing
+    (678912, 156502, 3, 198, 3),
+    (678912, 156502, 12, 5000, 1),          # one long track: 156,502 blocks would cost more
+    (0, 0, 9, 0, 0),
+])
+def test_group_width_follows_longest_segment(n_obs, n_out, n_rows, longest, want):
+    """With the longest segment known, blocks are taken only where the lanes
+    would wait for that segment longer than a block a segment costs."""
+    assert group_log2(n_obs, n_out, n_rows, longest) == want
+
+
+def test_group_width_of_gathered_values():
+    """Through ``perm`` a block reads scalars and costs more: venice-1778-
+    community's column sums (longest 1,538 of a mean 374) stay with lanes
+    where its row sums, on sorted values, take blocks; a run of a tenth of
+    all segments brings blocks either way."""
+    assert group_log2(665600, 1779, 9, 1538) == BLOCK_LOG2
+    assert group_log2(665600, 1779, 9, 1538, gathered=True) == 5
+    assert group_log2(665600, 1779, 9, 57000, gathered=True) == BLOCK_LOG2
+
+
+def test_plans_record_their_longest_segment():
+    ci = np.repeat(np.arange(5), [7, 0, 3, 11, 2]).astype(np.int32)
+    pi = np.array([0, 1, 2, 0, 1, 0, 3] + [4] * 16, dtype=np.int32)
+    plans = build_plans(_t(ci), _t(pi), 5, 6)
+    assert plans.cam_longest == 11 and plans.pt_longest == 16
+    assert build_plans(_t(ci[:0]), _t(pi[:0]), 5, 6).cam_longest == 0
+
+
+def _point_keyed_case(D, dtype, seed=5):
+    """Camera-sorted observations of 37 points: point 3 is never observed
+    (an empty segment), point 11 once (a one-observation segment)."""
+    rng = np.random.default_rng(seed)
+    C, P, O = 9, 37, 512
+    pi = rng.choice([p for p in range(P) if p not in (3, 11)], O - 1)
+    pi = np.concatenate([pi, [11]])
+    ci = np.sort(rng.integers(0, C, O))
+    return rng.standard_normal((D, O)).astype(dtype), ci.astype(np.int32), pi.astype(np.int32), C, P
+
+
+@pytest.mark.parametrize("D", [3, 12])
+@pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-12), (np.float32, 1e-5)],
+                         ids=["f64", "f32"])
+def test_point_keyed_segsum_with_perm_matches_reference(D, dtype, rtol):
+    """``pt_segsum_t`` (the gather fused into the sum through ``perm``) and
+    ``sorted_segment_sum_t_plain(..., perm=)`` against the reference's
+    ``pt_segsum_t`` (its Pallas kernel in interpret mode behind a gather):
+    f64 to 1e-12, f32 to 1e-5 of the largest sum."""
+    values, ci, pi, C, P = _point_keyed_case(D, dtype)
+    ref_plans = ref_build_plans(jnp.asarray(ci), jnp.asarray(pi), C, P, tile=128)
+    ref = np.asarray(ref_pt_segsum_t(ref_plans, jnp.asarray(values), jnp.asarray(pi), P))
+    plans = build_plans(_t(ci), _t(pi), C, P)
+    assert plans.perm_pt.dtype == torch.int32
+    out = pt_segsum_t(plans, _t(values), _t(pi), P)
+    assert out.dtype == _t(values).dtype and out.shape == (D, P)
+    _close(out.numpy(), ref, rtol)
+    plain = sorted_segment_sum_t_plain(_t(values), plans.pt_sorted_keys, P, perm=plans.perm_pt)
+    assert torch.equal(plain, out)
+    # the same sums as gathering first, and as summing by the unsorted keys
+    gathered = sorted_segment_sum_t_plain(_t(values)[:, plans.perm_pt.long()], plans.pt_sorted_keys, P)
+    assert torch.equal(gathered, out)
+    _close(pt_segsum_t(None, _t(values), _t(pi), P).numpy(), ref, rtol)
+    assert np.all(out.numpy()[:, 3] == 0)                                  # empty segment
+    np.testing.assert_array_equal(out.numpy()[:, 11], values[:, -1])       # one observation
 
 
 def _linearize_inputs(small_angle=None):

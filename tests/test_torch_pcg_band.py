@@ -26,6 +26,7 @@ from tpu_ba.solver.normal import damp_blocks as ref_damp_blocks
 from tpu_ba.solver.pcg import pcg as ref_pcg
 from tpu_ba.solver.schur import inv3x3_rows as ref_inv3x3_rows
 from tpu_ba.solver.schur import schur_rhs as ref_schur_rhs
+from tpu_ba_torch.kernels import pcg_band as pcg_band_mod
 from tpu_ba_torch.kernels.pcg_band import (fold_damp_prologue, gauss_jordan_inverse, pcg_banded,
                                            pcg_banded_plain)
 from tpu_ba_torch.solver import pairs as port_pairs
@@ -163,6 +164,31 @@ def test_wrapper_on_cpu_is_the_plain_version_and_refuses_other_variants(banded):
         pcg_banded(s["blk_t"], None, None, s["b_t"], s["pp"], tridiag=(None, None, None), **kw)
     with pytest.raises(ValueError, match="Minv or tridiag"):      # Ul alone
         pcg_banded(s["blk_t"], s["U_t_t"], None, s["b_t"], s["pp"], max_iters=5, tol=1e-4)
+
+
+@pytest.mark.parametrize("resident", [None, True, False])
+def test_wrapper_on_cpu_ignores_the_kernel_form(banded, resident):
+    """``resident`` picks between the CUDA kernel's two forms; a CPU tensor
+    takes the plain version whatever it says, with the same result."""
+    s = banded
+    kw = dict(max_iters=20, tol=1e-4, U_t=s["U_t_t"], lam=s["lam_t"], diag_floor=FLOOR,
+              diag_ceil=CEIL)
+    before = dict(pcg_band_mod.form_launches)
+    a = pcg_banded(s["blk_t"], None, None, s["b_t"], s["pp"], resident=resident, **kw)
+    b = pcg_banded_plain(s["blk_t"], None, None, s["b_t"], s["pp"], **kw)
+    assert torch.equal(a[0], b[0]) and a[1] == b[1] and bool(a[2]) == bool(b[2])
+    assert pcg_band_mod.form_launches == before          # no kernel was launched
+
+
+def test_resident_form_needs_a_band_that_starts_at_offset_zero():
+    """The size rule's host part: offsets must be 0 followed by distinct
+    positive ones (the resident form lays a transposed item beside every
+    positive offset and orders the items by their camera shift);
+    anything else is the streaming form's, decided without asking a card."""
+    assert pcg_band_mod.resident_cams(0, (), 10, "cuda:0") == 0
+    assert pcg_band_mod.resident_cams(0, (1, 2), 10, "cuda:0") == 0
+    assert pcg_band_mod.resident_cams(1, (0, 0, 3), 10, "cuda:0") == 0
+    assert pcg_band_mod.resident_cams(2, (0, 3, 3), 10, "cuda:0") == 0      # distinct shifts
 
 
 def test_banded_matvec_with_offband_leftovers_matches_reference():

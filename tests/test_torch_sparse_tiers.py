@@ -272,9 +272,11 @@ def test_kernel_plans_of_the_new_branches():
         assert start.shape == (C + 2,) and start[0] == 0 and start[-1] == plan.k_pad
         assert all(np.all(keys[start[c]:start[c + 1]] == c) for c in range(C + 1))
     assert start[C] == plan.n_segments                  # the padding tail is the trash camera's
+    assert plan.ci_longest == np.diff(plan.ci_start.numpy()).max()
+    assert plan.cj_longest == np.diff(plan.cj_start.numpy()).max()
     bare = port_pairs.build_pair_plan(ci, pi, n_obs, C, P, symmetric=True, pad_multiple=16,
                                       device="cpu")
-    assert bare.ci_start is None and bare.cj_start is None
+    assert bare.ci_start is None and bare.cj_start is None and bare.ci_longest is None
 
     ci, pi, n_obs, C, P = index_maps(leftover_problem())
     plan = port_pairs.build_pair_plan(ci, pi, n_obs, C, P, symmetric=True, pad_multiple=16,

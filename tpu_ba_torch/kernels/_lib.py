@@ -49,14 +49,20 @@ _SIGNATURES = {
     # W, cam, mask, V, row_start, off_idx, lam, out, degree, pt_pad, span,
     # c_pad, ld_out, diag_floor, diag_ceil, stream
     "tba_slot_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
-    # form, blk, ld, U, Minv, pcr_P, pcr_Q, pcr_D, pcr_levels, b, x0, offsets,
-    # n_offsets, n_cameras, c_pad, row_start, row_cj, col_start, col_seg, col_ci,
-    # left_base, n_left, lam, tol, max_iters, diag_floor, diag_ceil, work,
+    # form, cams, blk, ld, U, Minv, pcr_P, pcr_Q, pcr_D, pcr_levels, b, x0,
+    # offsets, n_offsets, n_cameras, c_pad, row_start, row_cj, col_start, col_seg,
+    # col_ci, left_base, n_left, lam, tol, max_iters, diag_floor, diag_ceil, work,
     # partial, x, iterations, ok, stream
-    "tba_pcg_banded": [_I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P,
-                       _P, _P, _I, _I, _P, _P, _I, _F, _F, _P, _P, _P, _P, _P, _P],
-    # values, seg_start, out, n_rows, n_obs, n_out, group_log2, stream
-    "tba_segsum_t": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "tba_pcg_banded": [_I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P,
+                       _P, _P, _P, _I, _I, _P, _P, _I, _F, _F, _P, _P, _P, _P, _P, _P],
+    # form, n_offsets, n_cameras → cameras a group of the resident form, 0, or −cudaError
+    "tba_pcg_resident_cams": [_I, _I, _I],
+    # form, n_offsets, cams → bytes of dynamic shared memory of the resident form
+    "tba_pcg_resident_smem": [_I, _I, _I],
+    # n_blocks, smem_bytes, n, partial, out, stream
+    "tba_pcg_barrier_floor": [_I, _I, _I, _P, _P, _P],
+    # values, perm, seg_start, out, n_rows, n_obs, n_out, group_log2, stream
+    "tba_segsum_t": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # cams, pts, obs, pt_idx, mask, cam_start, n_cameras, n_obs, robust_kind,
     # robust_scale, freeze_mask, U, gc, obs_out, stream
     "tba_linearize": [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float,

@@ -13,13 +13,23 @@ its forms:
     (``tpu_ba_torch/solver/tridiag.py``), ``tridiag=(P, Q, Dinv_fin)``.
 
 Each runs the preconditioned CG loop (early stop, breakdown freeze) to its end
-on the device. The CUDA kernel (``tpu_ba_torch/csrc/pcg_band.cu``) is one
-cooperative launch with device-wide barriers between the phases of an
-iteration and between the PCR levels. It is correct at any band size: a
-working set inside the card's 50 MB L2 (``band_l2_bytes``) is re-read from
-there every iteration, a larger one streams from device memory. The
-reference's VMEM admission has no counterpart here. Off-band leftover
-segments of a capped band are part of the kernel's matvec: each camera walks
+on the device, in one cooperative launch. The CUDA kernel
+(``tpu_ba_torch/csrc/pcg_band.cu``) has two forms, chosen here from the
+plan's shapes (``resident_cams``):
+
+  * resident: every group of 16 or 8 cameras keeps its slice of the band
+    in the shared memory of one block for the whole solve, and a CG iteration
+    makes two device-wide exchanges. It needs every group on the card at
+    once: ``n_groups`` ≤ the blocks co-resident at the slice's size (ladybug-
+    1723, 17 offsets: 108 groups of 16 at 209 KB);
+  * streaming: any band size. A working set inside the card's 50 MB L2
+    (``band_l2_bytes``) is re-read from there every iteration, a larger one
+    streams from device memory; three ``grid.sync()`` an iteration.
+
+This is a size rule, not an admission rule: a band that does not fit the
+resident form runs the streaming form of the same kernel (the reference's
+VMEM admission has no counterpart here). Off-band leftover segments of a
+capped band are part of the kernel's matvec in both forms: each camera walks
 its own lists (``PairPlan.left``) in order.
 
 Semantics are those of ``tpu_ba_torch/solver/pcg.py``, step for step.
@@ -35,7 +45,59 @@ from tpu_ba_torch.solver.tridiag import factor_t, pcr_apply
 
 MAX_BAND_OFFSETS = 64          # kMaxOffsets in csrc/pcg_band.cu
 _WORK_ROWS = 2 * 81 + 7 * 9    # Ul, M⁻¹, five vectors and the two PCR buffers, c_pad floats a row
-_CAMS_PER_GROUP = 16           # kCams in csrc/pcg_band.cu
+_CAMS_PER_GROUP = 16           # kStreamCams in csrc/pcg_band.cu
+
+# launches of the kernel by form since the last reset_form_launches()
+form_launches = {"resident": 0, "streaming": 0}
+_resident_cams: dict = {}
+
+
+def reset_form_launches() -> None:
+    for k in form_launches:
+        form_launches[k] = 0
+
+
+def resident_cams(form: int, band_offsets, n_cameras: int, device) -> int:
+    """Cameras per group (16 or 8) at which the resident form of the
+    kernel holds this band on ``device``, or 0 where it does not fit: the
+    slice of a group (an item of 81 floats a camera for each offset and for
+    each transposed pass, the staged vector, M⁻¹ and scratch) within the 227
+    KB a block may have, and every group co-resident. The card is asked once
+    per shape."""
+    offs = tuple(int(o) for o in band_offsets)
+    if not offs or offs[0] != 0 or any(o <= 0 for o in offs[1:]) or len(set(offs)) != len(offs):
+        return 0
+    key = (torch.device(device).index, form, len(offs), n_cameras)
+    if key not in _resident_cams:
+        with torch.cuda.device(device):
+            cams = _lib.load_library().tba_pcg_resident_cams(form, len(offs), n_cameras)
+        if cams < 0:
+            raise RuntimeError(f"pcg_band: the occupancy query failed: cudaError {-cams}")
+        _resident_cams[key] = cams
+    return _resident_cams[key]
+
+
+def exchange_floor(form: int, band_offsets, n_cameras: int, n: int, device):
+    """Launch the measuring kernel of ``csrc/pcg_band.cu``: ``n`` device-wide
+    exchanges of one partial sum and nothing else, on the grid and with the
+    shared memory of the resident form for this band (which must fit), in the
+    resident form's way (``grid.sync()`` and a re-summation of the partials
+    from L2). Two exchanges are
+    the least a CG iteration of the resident form can take. Returns the sum
+    the kernel formed (``n`` × the grid's blocks where the exchanges are
+    sound), a 0-dim tensor."""
+    cams = resident_cams(form, band_offsets, n_cameras, device)
+    if not cams:
+        raise ValueError("exchange_floor: the band does not fit the resident form")
+    lib = _lib.load_library()
+    n_blocks = -(-n_cameras // cams)
+    smem = lib.tba_pcg_resident_smem(form, len(band_offsets), cams)
+    partial = torch.zeros((6, n_blocks), dtype=torch.float32, device=device)
+    out = torch.zeros((), dtype=torch.float32, device=device)
+    status = lib.tba_pcg_barrier_floor(n_blocks, smem, int(n), partial.data_ptr(),
+                                       out.data_ptr(), _lib.stream_ptr(partial))
+    _lib.check_status("pcg_band exchange floor", status)
+    return out
 
 
 def band_l2_bytes(pairs, dc: int = 9, pcr_levels: int = 0) -> int:
@@ -120,7 +182,8 @@ def pcg_banded_plain(blk, Ul, Minv, b, pairs, *, max_iters: int, tol, x0=None, t
 
 
 def pcg_banded(blk, Ul, Minv, b, pairs, *, max_iters: int, tol, x0=None, tridiag=None,
-               U_t=None, lam=None, diag_floor: float = 1e-6, diag_ceil: float = 1e32):
+               U_t=None, lam=None, diag_floor: float = 1e-6, diag_ceil: float = 1e32,
+               resident: bool | None = None):
     """PCG on the banded reduced camera system, the reference's signature.
 
     ``blk`` (81, k_pad) compact blocks, ``b`` (C, 9), ``tol`` a 0-dim tensor
@@ -133,7 +196,10 @@ def pcg_banded(blk, Ul, Minv, b, pairs, *, max_iters: int, tol, x0=None, tridiag
     ``solver/pcg.py:pcg``. A CPU tensor takes the plain version, whose
     ``iterations`` is an int; a CUDA tensor launches the kernel, whose
     ``iterations`` (int32) and ``ok`` (bool) are 0-dim device tensors and
-    which synchronises nothing."""
+    which synchronises nothing. ``resident`` picks the kernel's form (for
+    tests and timing): None takes the resident form where the band fits it,
+    True raises where it does not, False forces the streaming form; a CPU
+    tensor ignores it."""
     form = _form(Ul, Minv, tridiag, U_t, lam)
     if blk.device.type == "cpu":
         return pcg_banded_plain(blk, Ul, Minv, b, pairs, max_iters=max_iters, tol=tol, x0=x0,
@@ -185,18 +251,23 @@ def pcg_banded(blk, Ul, Minv, b, pairs, *, max_iters: int, tol, x0=None, tridiag
             _lib.check_tensor(f"left.{name}", t, torch.int32, (n,), dev)
         left = [t.data_ptr() for t in pairs.left]
     lib = _lib.load_library()
-    n_groups = -(-C // _CAMS_PER_GROUP)
+    cams = 0 if resident is False else resident_cams(form, pairs.band_offsets, C, dev)
+    if resident and not cams:
+        raise ValueError(f"pcg_banded: a band of {n_off} offsets over {C} cameras does not fit "
+                         f"the resident form on this card")
+    n_groups = -(-C // (cams or _CAMS_PER_GROUP))
     work = torch.empty((_WORK_ROWS, c_pad), dtype=f32, device=dev)
-    partial = torch.empty((6, n_groups), dtype=f32, device=dev)
+    partial = torch.empty((6, n_groups), dtype=f32, device=dev)   # the blocks' partial sums
     x = torch.empty((C, 9), dtype=f32, device=dev)
     info = torch.empty((2,), dtype=torch.int32, device=dev)
     status = lib.tba_pcg_banded(
-        form, blk.data_ptr(), pairs.k_pad, U.data_ptr(), ptr["Minv"], ptr["P"], ptr["Q"],
+        form, cams, blk.data_ptr(), pairs.k_pad, U.data_ptr(), ptr["Minv"], ptr["P"], ptr["Q"],
         ptr["D"], levels, b.data_ptr(), None if x0 is None else x0.data_ptr(),
         pairs.band_offsets_t.data_ptr(), n_off, C, c_pad, *left, pairs.k_band, n_left,
         ptr["lam"], tol.data_ptr(), int(max_iters), float(diag_floor), float(diag_ceil),
         work.data_ptr(), partial.data_ptr(), x.data_ptr(), info[0:].data_ptr(),
         info[1:].data_ptr(), _lib.stream_ptr(blk))
     _lib.launches["pcg_band" if form == 0 else "pcg_band_given"] += 1
+    form_launches["resident" if cams else "streaming"] += 1
     _lib.check_status("pcg_band", status)
     return x, info[0], info[1] != 0

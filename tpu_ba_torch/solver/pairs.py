@@ -52,6 +52,7 @@ from tpu_ba_torch.solver import tracks as tracks_mod
 from tpu_ba_torch.solver.batched_linalg import inv_spd_small
 from tpu_ba_torch.solver.normal import BlockSystem, damp_blocks
 from tpu_ba_torch.solver.pcg import pcg
+from tpu_ba_torch.solver.plans import longest_segment
 from tpu_ba_torch.solver.schur import (_matmul_rows_33, _w_dot, _wt_dot, back_substitute,
                                        inv3x3_rows, schur_rhs, w_vinv_wt_diag)
 from tpu_ba_torch.solver.tridiag import pcr_apply, pcr_factor, tridiag_from_band
@@ -89,8 +90,9 @@ class PairPlan:
     reference's ``seg_plan`` (None ⇒ the plain versions run). With it come,
     on a non-banded plan, ``ci_start`` / ``cj_start`` (C + 2 CSR starts of
     ``seg_ci`` and ``cj_keys``, keys 0 … C) for K1 in the compact matvec, in
-    place of the reference's ``ci_plan`` / ``cj_plan``; on a banded plan with
-    leftover segments, ``left``.
+    place of the reference's ``ci_plan`` / ``cj_plan``, and ``ci_longest`` /
+    ``cj_longest``, the longest segment of each (K1 picks its schedule from
+    it); on a banded plan with leftover segments, ``left``.
     """
 
     pair_i: torch.Tensor     # (Np,) int32, observation of the row side
@@ -127,6 +129,8 @@ class PairPlan:
     slot: slots_mod.SlotLayout | None = None
     ci_start: torch.Tensor | None = None
     cj_start: torch.Tensor | None = None
+    ci_longest: int | None = None
+    cj_longest: int | None = None
     left: LeftoverLists | None = None
 
 
@@ -161,7 +165,7 @@ def pair_plan_from_numpy(arrays: dict, *, track=None, slot=None, with_kernel_pla
     C, k_pad = int(meta["n_cameras"]), int(meta["k_pad"])
     band_offsets = tuple(int(o) for o in meta["band_offsets"])
     opt = {k: arrays.get(k) for k in PAIR_OPTIONAL_ARRAYS}
-    seg_start = ci_start = cj_start = left = None
+    seg_start = ci_start = cj_start = ci_longest = cj_longest = left = None
     if with_kernel_plans:
         n_real = int((np.asarray(arrays["pair_key"]).astype(np.int64) < C * C).sum())
         seg_start = t(np.searchsorted(seg[:n_real], np.arange(k_pad + 1), side="left"))
@@ -171,10 +175,12 @@ def pair_plan_from_numpy(arrays: dict, *, track=None, slot=None, with_kernel_pla
         if not meta["banded"]:
             if np.any(np.diff(seg_ci) < 0):
                 raise ValueError("seg_ci of a non-banded plan must be sorted ascending")
-            ci_start = t(np.searchsorted(seg_ci, np.arange(C + 2), side="left"))
+            starts = np.searchsorted(seg_ci, np.arange(C + 2), side="left")
+            ci_start, ci_longest = t(starts), longest_segment(starts)
             if opt["cj_keys"] is not None:
-                cj_start = t(np.searchsorted(np.asarray(opt["cj_keys"]).astype(np.int64),
-                                             np.arange(C + 2), side="left"))
+                starts = np.searchsorted(np.asarray(opt["cj_keys"]).astype(np.int64),
+                                         np.arange(C + 2), side="left")
+                cj_start, cj_longest = t(starts), longest_segment(starts)
         elif K > k_band:
             left = LeftoverLists(*[t(a) for a in _leftover_lists(seg_ci[k_band:K],
                                                                  seg_cj[k_band:K], C)])
@@ -190,7 +196,8 @@ def pair_plan_from_numpy(arrays: dict, *, track=None, slot=None, with_kernel_pla
         banded=bool(meta["banded"]), band_offsets=band_offsets,
         band_offsets_t=t(np.asarray(band_offsets, np.int64)) if band_offsets else None,
         c_pad=int(meta["c_pad"]), k_band=int(meta["k_band"]), track=track, slot=slot,
-        ci_start=ci_start, cj_start=cj_start, left=left)
+        ci_start=ci_start, cj_start=cj_start, ci_longest=ci_longest, cj_longest=cj_longest,
+        left=left)
 
 
 def build_pair_plan(cam_idx, pt_idx, n_obs: int, n_cameras: int, n_points: int, *,
@@ -696,7 +703,8 @@ def make_compact_matvec(blk, Ul, pairs: PairPlan, dc: int, heavy_term=None):
     """S·x for a non-banded plan: gather x by column camera, block·vector per
     segment, sum by row camera; a symmetric plan adds the transposed pass
     y_cj −= T_{ci,cj}ᵀ x_ci over the off-diagonal blocks, summed by column
-    camera through the plan's cj-sorted permutation. With kernel plans the
+    camera through the plan's cj-sorted permutation (which K1 reads through:
+    no permuted copy). With kernel plans the
     two keyed sums go through the K1 wrapper (keys 0 … C, padding segments
     under the trash camera C, whose blocks are exact zeros); without, through
     plain PyTorch."""
@@ -708,20 +716,22 @@ def make_compact_matvec(blk, Ul, pairs: PairPlan, dc: int, heavy_term=None):
     if pairs.symmetric:
         nondiag = pairs.nondiag.to(blk.dtype)
         if pairs.cj_start is not None:
-            perm = pairs.seg_perm_cj.long()
+            perm = pairs.seg_perm_cj      # int32: K1 gathers through it as it reads
 
     def matvec(x):
         y = torch.einsum("cij,cj->ci", Ul, x)
         z = (blk3 * x.T[:, seg_cj][None, :, :]).sum(dim=1)              # (dc, k_pad)
         if pairs.ci_start is not None:
-            t = sorted_segment_sum_t(z, pairs.seg_ci, C + 1, pairs.ci_start)
+            t = sorted_segment_sum_t(z, pairs.seg_ci, C + 1, pairs.ci_start,
+                                     longest=pairs.ci_longest)
         else:
             t = sorted_segment_sum_t_plain(z, pairs.seg_ci, C + 1)
         y = y - t[:, :C].T
         if pairs.symmetric:
             z2 = (blk3 * x.T[:, seg_ci_in][:, None, :]).sum(dim=0) * nondiag[None, :]
             if perm is not None:
-                t2 = sorted_segment_sum_t(z2[:, perm], pairs.cj_keys, C + 1, pairs.cj_start)
+                t2 = sorted_segment_sum_t(z2, pairs.cj_keys, C + 1, pairs.cj_start, perm=perm,
+                                          longest=pairs.cj_longest)
             else:
                 t2 = sorted_segment_sum_t_plain(z2, seg_cj, C + 1)      # unsorted keys
             y = y - t2[:, :C].T
