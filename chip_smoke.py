@@ -510,14 +510,15 @@ def main() -> int:
                 f"{got['track_dmax']}, {got['track_n_tracked']} points (pt_pad "
                 f"{got['track_pt_pad']}); slots degrees {got['slot_degrees']}, tiles "
                 f"{got['slot_tiles']}, widths {got['slot_widths']}, {got['slot_n_tracked']} points"
-                f" (pt_pad {got['slot_pt_pad']}, l2_len {got['slot_l2_len']}); {plan.n_pairs} "
+                f" (pt_pad {got['slot_pt_pad']}, l2_len {got['slot_l2_len']}, spans {sl.spans}, "
+                f"{[int(i.numel()) for i in sl.inc]} incidences); {plan.n_pairs} "
                 f"padded pairs; PCG working set {band_l2_bytes(plan) / 2**20:.2f} MiB")
     if got != EXPECTED_PLAN:
         diff = {k: (got[k], EXPECTED_PLAN[k]) for k in got if got[k] != EXPECTED_PLAN[k]}
         raise AssertionError(f"pair plan differs from the reference's (got, expected): {diff}")
     plain_plan = dataclasses.replace(
         plan, seg_start=None, track=dataclasses.replace(tl, key_start=None),
-        slot=dataclasses.replace(sl, row_start=None))
+        slot=dataclasses.replace(sl, inc_start=None, inc=None))
 
     def linearize(prob, pl):
         """The BlockSystem of ``prob`` at its initial parameters, through K2 and K1."""
@@ -568,6 +569,8 @@ def main() -> int:
         lam64 = lam32.double()
         for name, (kernel_fn, plain_fn) in band_calls.items():
             out = kernel_fn(pd, lam32, plan)
+            if not torch.equal(out, kernel_fn(pd, lam32, plan)):
+                raise AssertionError(f"{name} at lam {lam:g}: two runs differ")
             ref = plain_fn(pd64, lam64, plan)
             plain = plain_fn(pd, lam32, plan)
             if name == "pairblocks":    # the padding pairs' trash segment: zero from the kernel
@@ -597,25 +600,36 @@ def main() -> int:
     lam32 = torch.tensor(1e-4, device=dev)
     for name in ("pairblocks", "trackband", "slotband"):
         kernel_fn, plain_fn = band_calls[name]
-        results[name]["ms"] = median_ms(torch, lambda: kernel_fn(pd, lam32, plan))
+        if name != "slotband":
+            results[name]["ms"] = median_ms(torch, lambda: kernel_fn(pd, lam32, plan))
         results[name]["plain_ms"] = median_ms(torch, lambda: plain_fn(pd, lam32, plan), reps=5)
-    # K6 as the band build calls it, adding into the band under assembly, and
-    # the band build as a whole (K7, K5 and its per-offset adds, K6 in place)
+    # K6 as the band build calls it, adding into the band under assembly, on
+    # K1's clock (replayed CUDA graphs; ms: over copies of W that rotate through
+    # twice the L2, ms_l2: on one copy), and the band build as a whole (K7, K5
+    # and its per-offset adds, K6 in place) launched from Python
     band_buf = torch.zeros((81, plan.k_pad), device=dev)
-    results["slotband"]["ms_into_band"] = median_ms(
-        torch, lambda: slot_band_blocks(pd.slot_W, pd.slot_V, lam32, sl, out=band_buf, **kw))
+    w_sets = [[w.clone() for w in pd.slot_W]
+              for _ in range(len(value_copies(pd.slot_W[0])) - 1)] + [pd.slot_W]
+
+    def k6_into_band(ws):
+        return slot_band_blocks(ws, pd.slot_V, lam32, sl, out=band_buf, **kw)
+
+    results["slotband"]["ms"] = device_ms(torch, [lambda ws=ws: k6_into_band(ws) for ws in w_sets])
+    results["slotband"]["ms_l2"] = device_ms(torch, lambda: k6_into_band(pd.slot_W))
     build_ms = median_ms(torch, lambda: band_calls["blk"][0](pd, lam32, plan))
-    say("kernel", f"K6 adding into a given band: {results['slotband']['ms_into_band']:.4f} ms; "
-                  f"the whole band build (K7 + K5 + K6 and the adds): {build_ms:.4f} ms")
-    del band_buf
-    # inputs read once, outputs written once (K6 as timed above returns a fresh grid)
+    say("kernel", f"K6 adding into a given band, {len(w_sets)} copies of W: "
+                  f"{results['slotband']['ms']:.4f} ms ({results['slotband']['ms_l2']:.4f} from "
+                  f"L2); the whole band build (K7 + K5 + K6 and the adds): {build_ms:.4f} ms")
+    del band_buf, w_sets
+    # inputs read once, outputs written once (K6: its plan is inc_start and inc)
     set_bound("pairblocks", 4 * (63 * plan.n_pairs + plan.k_pad + 1 + 1 + 81 * plan.k_pad),
               n_real * (60 + 135 + 486))
     set_bound("trackband", 4 * ((27 + 1) * tl.dmax * tl.pt_pad + 9 * tl.pt_pad + plan.c_pad + 2
                                 + 81 * tl.dmax * plan.c_pad), pair_ops(trk_deg))
     set_bound("slotband",
-              4 * (sum((27 + 2) * d * pk + 9 * pk + plan.c_pad + 1
-                       for d, pk in zip(sl.degrees, sl.pt_pad)) + 17 + 1 + 81 * plan.k_band),
+              4 * (sum((27 + 2) * d * pk + 9 * pk + plan.c_pad + 1 + inc.numel()
+                       for d, pk, inc in zip(sl.degrees, sl.pt_pad, sl.inc))
+                   + 17 + 1 + 81 * plan.k_band),
               sum(pair_ops(d) for d in slot_deg))
     for name, k in (("pairblocks", "K7"), ("trackband", "K5"), ("slotband", "K6")):
         say("kernel", f"{k} {name}: {results[name]['ms']:.4f} ms, plain "

@@ -1,0 +1,134 @@
+#!/usr/bin/env python3
+"""Time the band-build kernels of ladybug-1723 as ``_compact_blocks`` calls
+them, for one tree of the port, on one CUDA card.
+
+    python3 scripts/torch_band_time.py [--root DIR] [--lam 1e-4]
+
+``--root`` is the directory that holds the ``tpu_ba_torch`` package to time
+(default: this checkout). To compare two commits, unpack the other with
+``git archive`` and run this script once for each root on the same card, e.g.
+other, this, this, other: the calls go through the wrappers' public
+signatures and the plan and pair data of ``build_pair_plan`` /
+``precompute_pair_data``, which every tree of the port has, whatever its
+kernel does inside.
+
+Two clocks per call, in ms, each 20 calls replayed from a CUDA graph and
+timed by CUDA events: ``cold``, over copies of the kernel's point data that
+rotate through more than twice the L2's size, so that each call reads it from
+device memory, as in a solve; ``l2``, the same on one copy, which the replays
+find in L2 where it fits. Each kernel is first checked against its plain
+version in f64 (worst (entry, offset) row). Prints the card's name and power
+limit first. A kernel is one entry of ``CASES``: K6 today.
+"""
+
+import argparse
+import os
+import statistics
+import subprocess
+import sys
+
+L2_BYTES = 50 << 20
+
+
+def event_ms(torch, fn, reps=10, warmup=2):
+    times = []
+    for i in range(warmup + reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        if i >= warmup:
+            times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def replay_ms(torch, fns, launches=20):
+    """ms per call of ``launches`` calls, taken in turn from ``fns``,
+    replayed from a CUDA graph."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(launches):
+            fns[i % len(fns)]()
+    return event_ms(torch, graph.replay) / launches
+
+
+def n_copies(n_bytes, launches=20):
+    """How many copies of ``n_bytes`` of data make more than twice the L2."""
+    return min(launches, max(1, -(-2 * L2_BYTES // n_bytes) + 1))
+
+
+def k6(torch, plan, pd, lam, band, kw):
+    """K6 adding into the band under assembly, as ``_compact_blocks`` calls
+    it; its point data is W. Returns (call on a W, W, plain call)."""
+    from tpu_ba_torch.kernels.slotband import slot_band_blocks, slot_band_blocks_plain
+
+    def call(ws):
+        return slot_band_blocks(ws, pd.slot_V, lam, plan.slot, out=band, **kw)
+
+    def plain(ws, vs, lam_):
+        return slot_band_blocks_plain(ws, vs, lam_, plan.slot, **kw)
+
+    return call, list(pd.slot_W), (plain, list(pd.slot_V))
+
+
+# name → maker of (call on the point data, the point data, (plain, its other inputs))
+CASES = {"K6 slotband": k6}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--lam", type=float, default=1e-4)
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_band_time: needs a CUDA card", file=sys.stderr)
+        return 1
+    from tpu_ba_torch.core import LMConfig
+    from tpu_ba_torch.io.bal import make_bal_like_problem
+    from tpu_ba_torch.jacobians.analytic import jacobian_blocks_bal
+    from tpu_ba_torch.solver import pairs as pairs_mod
+    from tpu_ba_torch.solver.normal import assemble
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip(), flush=True)
+    dev = torch.device("cuda")
+    p, _ = make_bal_like_problem("ladybug-1723", dtype=torch.float32, device=dev)
+    r, Jc, Jp = jacobian_blocks_bal(p.cameras, p.points, p.obs_2d, p.cam_idx, p.pt_idx, p.mask)
+    B = assemble(r, Jc, Jp, p.cam_idx, p.pt_idx, p.n_cameras, p.n_points, mask=p.mask)
+    B = B._replace(U=B.U.contiguous(), W=B.W.contiguous())
+    plan = pairs_mod.build_pair_plan(p.cam_idx, p.pt_idx, p.n_obs, p.n_cameras, p.n_points,
+                                     with_kernel_plans=True, symmetric=True)
+    pd = pairs_mod.precompute_pair_data(B, plan)
+    kw = dict(dc=9, diag_floor=LMConfig().diag_floor, diag_ceil=LMConfig().diag_ceil)
+    lam = torch.tensor(args.lam, device=dev)
+    print(f"root {root}; lam {args.lam:g}; ms per call: cold / l2", flush=True)
+    for name, make in CASES.items():
+        band = torch.zeros((81, plan.k_pad), device=dev)
+        call, data, (plain, rest) = make(torch, plan, pd, lam, band, kw)
+        # the kernel's contribution against the plain version in f64
+        got = call(data)[:, :plan.k_band].double()
+        ref = plain([t.double() for t in data], [t.double() for t in rest], lam.double())
+        scale = ref.abs().amax(1).clamp_min(1e-300)
+        worst = ((got - ref).abs().amax(1) / scale).max().item()
+        n_bytes = sum(t.numel() * t.element_size() for t in data)
+        sets = [data] + [[t.clone() for t in data] for _ in range(n_copies(n_bytes) - 1)]
+        cold = replay_ms(torch, [lambda s=s: call(s) for s in sets])
+        l2 = replay_ms(torch, [lambda: call(data)])
+        print(f"{name:16s} {len(sets):2d} copies of {n_bytes / 1e6:.1f} MB | {cold:.4f} / {l2:.4f}"
+              f" | worst (entry, offset) row {worst:.2e} from f64", flush=True)
+        del sets, band
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

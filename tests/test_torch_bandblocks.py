@@ -211,6 +211,7 @@ def test_compact_blocks_with_kernel_plans_take_the_wrappers_plain_route_on_cpu(m
     lam = torch.tensor(1e-3)
     with_plans = port_pairs._compact_blocks(m["Bp"], lam, m["pp"], m["pdp"], FLOOR, CEIL)
     bare = plan_to_port(m["plan"], with_kernel_plans=False)
-    assert bare.seg_start is None and bare.track.key_start is None and bare.slot.row_start is None
+    assert bare.seg_start is None and bare.track.key_start is None and bare.slot.inc_start is None
+    assert bare.slot.inc is None
     without = port_pairs._compact_blocks(m["Bp"], lam, bare, m["pdp"], FLOOR, CEIL)
     assert torch.equal(with_plans, without)

@@ -314,6 +314,11 @@ def _incidence(case):
     if case == "diagonal":        # every point seen once: a band of the one offset 0
         C = 11
         return C, [np.array([c]) for c in range(C) for _ in range(4)]
+    if case.startswith("slots"):  # degrees 2–16 in 17-wide windows; cameras 0–2 and the last
+        C = 64                    # 8 hold no point; seeded by the case's suffix
+        rng = np.random.default_rng(int(case[5:]))
+        return C, [np.sort(c + rng.choice(17, deg, replace=False))
+                   for c in range(3, C - 8 - 16) for deg in rng.integers(2, 17, 5)]
     if case == "long":            # 30,011 cameras: more camera groups than resident PCG blocks
         C = 30011
         return C, [np.arange(c, min(c + 3, C)) for c in range(C)]
@@ -476,6 +481,40 @@ def test_slot_kernel_adds_into_the_band_it_is_given(dev):
     with pytest.raises(ValueError):         # a view with gaps between its rows
         slot_band_blocks(pd.slot_W, pd.slot_V, lam, plan.slot, out=band[:, :plan.k_band],
                          **BAND_KW)
+
+
+@pytest.mark.parametrize("given", [False, True], ids=["fresh", "given"])
+@pytest.mark.parametrize("seed", [1, 2])
+def test_slot_kernel_on_random_layouts(dev, seed, given):
+    """Several buckets up to degree 16, spans up to 16, band rows without
+    incidences: K6 per (entry, offset) row against the plain version in f64,
+    into a fresh grid or on top of a band it is given, and the same bits on a
+    second call."""
+    B, plan = _band_system(dev, f"slots{seed}", slots=True, tracks=False)
+    sl = plan.slot
+    assert len(sl.degrees) > 2 and max(sl.degrees) == 16 and max(sl.spans) == 16
+    assert any((m == 0).any() for m in sl.slot_mask)
+    assert (sl.inc_start[0][1:] == sl.inc_start[0][:-1]).any()          # a row without incidences
+    pd, pd64 = pairs_mod.precompute_pair_data(B, plan), pairs_mod.precompute_pair_data(_f64(B), plan)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for lam in (1e-4, 1.0):
+        lam32 = torch.tensor(lam, device=dev)
+        ref = slot_band_blocks_plain(pd64.slot_W, pd64.slot_V, lam32.double(), sl, **BAND_KW)
+        plain = slot_band_blocks_plain(pd.slot_W, pd.slot_V, lam32, sl, **BAND_KW)
+        if given:
+            band = ref.abs().max() * torch.randn((81, plan.k_pad), device=dev, generator=gen)
+            band = band.float()
+            outs = [slot_band_blocks(pd.slot_W, pd.slot_V, lam32, sl, out=band.clone(), **BAND_KW)
+                    for _ in range(2)]
+            assert torch.equal(outs[0][:, plan.k_band:], band[:, plan.k_band:])
+            ref = band[:, :plan.k_band].double() + ref
+            plain = band[:, :plan.k_band] + plain
+            outs = [o[:, :plan.k_band] for o in outs]
+        else:
+            outs = [slot_band_blocks(pd.slot_W, pd.slot_V, lam32, sl, **BAND_KW) for _ in range(2)]
+            assert torch.all(outs[0][:, ref.abs().sum(0) == 0] == 0)
+        assert torch.equal(outs[0], outs[1])
+        _held_to_plain_f32(outs[0], plain, ref, f"slotband lam {lam:g}")
 
 
 def _pcg_inputs(dev, case, lam=1.0, **plan_kw):

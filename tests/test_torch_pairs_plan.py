@@ -238,10 +238,9 @@ def test_kernel_plans_are_csr_starts_of_the_real_entries():
     keys = tl.keys.numpy()
     assert all(np.all(keys[ks[c]:ks[c + 1]] == c) for c in range(C))
     assert tl.slot_mask.numpy()[:, tl.n_tracked:].sum() == 0
-    for k, rs in enumerate(sl.row_start):
-        n_real_k = int((sl.slot_mask[k].numpy()[0] > 0).sum())
-        assert rs.numpy()[-1] == n_real_k and rs.shape == (plan.c_pad + 1,)
+    for k, st in enumerate(sl.inc_start):
         cam, mask = sl.slot_cam[k].numpy(), sl.slot_mask[k].numpy()
+        assert st.numpy()[-1] == int((mask > 0).sum()) and st.shape == (plan.c_pad + 1,)
         assert sl.spans[k] == ((cam - cam[0]) * (mask > 0)).max() <= port_slots.SLOT_SPAN_CAP
     off_idx = sl.off_idx.numpy()
     for o in range(sl.n_off_loc):
@@ -289,6 +288,58 @@ def test_track_and_slot_layouts_match_reference_standalone():
         port_tracks.build_track_layout(ci, pi, n_obs, C, P, C, device="cpu")
 
 
+def _incidences_brute_force(cam, mask, c_pad):
+    """The (p, a) of every unmasked slot, row by row, in ascending p."""
+    starts, codes = [0], []
+    for r in range(c_pad):
+        for p in range(cam.shape[1]):
+            codes += [p * 16 + a for a in range(cam.shape[0])
+                      if mask[a, p] > 0 and cam[a, p] == r]
+        starts.append(len(codes))
+    return np.asarray(starts), np.asarray(codes, np.int64)
+
+
+def wide_degree_problem(n_cams=30, seed=17):
+    """Points of degree 2–9 over a window of 12 cameras, and cameras 0–1 and
+    the last that no slot reaches: buckets of degree > 4, rows with no
+    incidence, masked slots."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for c in range(2, n_cams - 12):
+        for deg in (2, 3, 5, 6, 7, 9):
+            rows.append(np.sort(c + rng.choice(12, deg, replace=False)))
+    return _with_incidence(n_cams, len(rows), np.concatenate(rows),
+                           np.repeat(np.arange(len(rows)), [len(r) for r in rows]), seed)
+
+
+@pytest.mark.parametrize("case", ["gappy_slots", "gappy_tracks_and_slots", "unsorted_input",
+                                  "wide_degrees"])
+def test_slot_incidences_match_a_brute_force_enumeration(case):
+    """K6's CSR: every unmasked (point, slot) once, under the row of its
+    camera, in ascending point order, on every slot-bearing plan."""
+    if case == "wide_degrees":
+        make, kw = wide_degree_problem, dict(symmetric=True, slots=True, tracks=False)
+    else:
+        make, kw = CASES[case]
+    ci, pi, n_obs, C, P = index_maps(make())
+    plan = port_pairs.build_pair_plan(ci, pi, n_obs, C, P, pad_multiple=16,
+                                      with_kernel_plans=True, device="cpu", **kw)
+    if plan.slot is None:
+        assert case == "unsorted_input"       # nothing is slot-eligible there
+        return
+    sl = plan.slot
+    for k in range(len(sl.degrees)):
+        cam, mask = sl.slot_cam[k].numpy(), sl.slot_mask[k].numpy()
+        starts, codes = _incidences_brute_force(cam, mask, plan.c_pad)
+        _same(sl.inc_start[k], starts, f"inc_start[{k}]")
+        _same(sl.inc[k], codes, f"inc[{k}]")
+    if case == "wide_degrees":
+        assert max(sl.degrees) > 4 and len(sl.degrees) > 1
+        assert any((m.numpy() == 0).any() for m in sl.slot_mask)      # masked slots
+        empty = np.diff(sl.inc_start[0].numpy()[:C + 1]) == 0
+        assert empty[0] and empty[C - 1]                              # rows with no incidence
+
+
 def test_bridge_round_trip():
     """A reference plan carried over as numpy equals the port's own."""
     ci, pi, n_obs, C, P = index_maps(gappy_problem(drop_share=0.5))
@@ -300,8 +351,10 @@ def test_bridge_round_trip():
     assert_same_plan(carried, ref)
     _same(carried.seg_start, own.seg_start.numpy(), "seg_start")
     _same(carried.track.key_start, own.track.key_start.numpy(), "key_start")
-    for a, b in zip(carried.slot.row_start, own.slot.row_start):
-        _same(a, b.numpy(), "row_start")
+    for a, b in zip(carried.slot.inc_start, own.slot.inc_start):
+        _same(a, b.numpy(), "inc_start")
+    for a, b in zip(carried.slot.inc, own.slot.inc):
+        _same(a, b.numpy(), "inc")
     assert carried.slot.spans == own.slot.spans
     _same(carried.slot.off_idx, own.slot.off_idx.numpy(), "off_idx")
     with pytest.raises(KeyError):

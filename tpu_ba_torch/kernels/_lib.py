@@ -46,9 +46,9 @@ _SIGNATURES = {
     # Wt, Vt, mask, key_start, lam, out, dmax, pt_pad, c_pad, diag_floor,
     # diag_ceil, stream
     "tba_track_blocks": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
-    # W, cam, mask, V, row_start, off_idx, lam, out, degree, pt_pad, span,
+    # W, cam, mask, V, inc_start, inc, off_idx, lam, out, degree, pt_pad,
     # c_pad, ld_out, diag_floor, diag_ceil, stream
-    "tba_slot_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    "tba_slot_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     # form, cams, blk, ld, U, Minv, pcr_P, pcr_Q, pcr_D, pcr_levels, b, x0,
     # offsets, n_offsets, n_cameras, c_pad, row_start, row_cj, col_start, col_seg,
     # col_ci, left_base, n_left, lam, tol, max_iters, diag_floor, diag_ceil, work,

@@ -6,8 +6,9 @@ bucket and slots a ≤ b with cameras cam_a ≤ cam_b the block
 ``W_a (V_p + λ·clip(diag V_p))⁻¹ W_bᵀ`` is added to band cell
 ``off_idx[cam_b − cam_a]·c_pad + cam_a`` of the off-major ``(81, k_band)``
 grid. The CUDA kernel (``tpu_ba_torch/csrc/slotband.cu``) accumulates straight
-into the band, one launch per bucket and one block per band row, where the
-reference reduced into tile-local grids and folded those with a second,
+into the band, one launch per bucket and one block per band row over the
+row's (point, slot) incidences (``layout.inc_start``, ``layout.inc``), where
+the reference reduced into tile-local grids and folded those with a second,
 host-sorted segment sum.
 """
 
@@ -76,8 +77,8 @@ def slot_band_blocks(Ws, Vs, lam, layout, *, dc: int = 9, diag_floor: float, dia
         return out
     if dc != 9:
         raise ValueError(f"slot_band_blocks: the kernel takes 9-parameter cameras, got dc={dc}")
-    if layout.row_start is None:
-        raise ValueError("slot_band_blocks on CUDA needs layout.row_start "
+    if layout.inc_start is None:
+        raise ValueError("slot_band_blocks on CUDA needs layout.inc_start and layout.inc "
                          "(build the layout with with_kernel_plans=True)")
     dev = Ws[0].device
     c_pad = layout.c_pad
@@ -89,7 +90,8 @@ def slot_band_blocks(Ws, Vs, lam, layout, *, dc: int = 9, diag_floor: float, dia
         _lib.check_tensor(f"Vs[{k}]", Vs[k], torch.float32, (9, pk), dev)
         _lib.check_tensor(f"slot_cam[{k}]", layout.slot_cam[k], torch.int32, (d, pk), dev)
         _lib.check_tensor(f"slot_mask[{k}]", layout.slot_mask[k], torch.float32, (d, pk), dev)
-        _lib.check_tensor(f"row_start[{k}]", layout.row_start[k], torch.int32, (c_pad + 1,), dev)
+        _lib.check_tensor(f"inc_start[{k}]", layout.inc_start[k], torch.int32, (c_pad + 1,), dev)
+        _lib.check_tensor(f"inc[{k}]", layout.inc[k], torch.int32, tuple(layout.inc[k].shape), dev)
     if out is None:
         out = torch.zeros((81, n_out), dtype=torch.float32, device=dev)
     else:
@@ -98,10 +100,9 @@ def slot_band_blocks(Ws, Vs, lam, layout, *, dc: int = 9, diag_floor: float, dia
     for k, d in enumerate(layout.degrees):
         status = lib.tba_slot_blocks(
             Ws[k].data_ptr(), layout.slot_cam[k].data_ptr(), layout.slot_mask[k].data_ptr(),
-            Vs[k].data_ptr(), layout.row_start[k].data_ptr(), layout.off_idx.data_ptr(),
-            lam.data_ptr(), out.data_ptr(), d, layout.pt_pad[k], layout.spans[k], c_pad,
-            out.shape[1],
-            float(diag_floor), float(diag_ceil), _lib.stream_ptr(out))
+            Vs[k].data_ptr(), layout.inc_start[k].data_ptr(), layout.inc[k].data_ptr(),
+            layout.off_idx.data_ptr(), lam.data_ptr(), out.data_ptr(), d, layout.pt_pad[k],
+            c_pad, out.shape[1], float(diag_floor), float(diag_ceil), _lib.stream_ptr(out))
         _lib.launches["slotband"] += 1
         _lib.check_status("slotband", status)
     return out

@@ -649,7 +649,7 @@ def _compact_blocks(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData,
         # the slot build works on the off-major band grid itself, the layout
         # of blk[:, :k_band]: the kernel adds into blk in place
         sl = pairs.slot
-        if sl.row_start is not None:
+        if sl.inc_start is not None:
             slot_band_blocks(pair_data.slot_W, pair_data.slot_V, lam, sl, out=blk, **kw)
         else:
             blk[:, :pairs.k_band] += slot_band_blocks_plain(pair_data.slot_W, pair_data.slot_V,

@@ -21,8 +21,9 @@ decides which points leave the pair enumeration. So ``tiles``, ``widths``,
 computes them (the plain version reduces through them, like the
 reference's oracle). The reference's level-2 ``SegsumPlan`` is replaced by
 what the CUDA kernel (``tpu_ba_torch/kernels/slotband.py``) needs: per
-bucket the CSR starts of the sorted start cameras and the bucket's real
-span, and the table from a local offset to its band slot.
+bucket the unmasked (point, slot) incidences listed band row by band row
+(a CSR by the slot's camera), and the table from a local offset to its
+band slot.
 """
 
 from __future__ import annotations
@@ -56,9 +57,10 @@ class SlotLayout:
       slot_mask[k] (d, Pk)  1.0 where slot < true degree
       vperm[k]     (Pk,)    original point id (V gather)
       tile_base[k] (Tk,)    per-tile base row (min camera of the tile)
-      row_start[k] (c_pad+1,) CSR starts of the real points' start cameras
-                            slot_cam[k][0] (padding points lie past the last
-                            run; None ⇒ the plain version runs)
+      inc_start[k] (c_pad+1,) CSR starts into inc[k] by band row (None ⇒
+                            the plain version runs)
+      inc[k]       (n_inc,) the unmasked incidences (p, a) as p·16 + a,
+                            sorted by slot_cam[k][a, p], then by p
       spans[k]              max (camera − start camera) over the bucket
     Shared:
       n_off_loc    dense local offset count (SLOT_SPAN_CAP + 1)
@@ -75,7 +77,8 @@ class SlotLayout:
     slot_mask: tuple
     vperm: tuple
     tile_base: tuple
-    row_start: tuple | None
+    inc_start: tuple | None
+    inc: tuple | None
     off_idx: torch.Tensor
     l2_perm: torch.Tensor
     l2_keys: torch.Tensor
@@ -227,6 +230,20 @@ def select_slot_buckets(cam_idx, pt_idx, n_obs: int, n_points: int, *,
     return out
 
 
+def slot_incidences(scam, smask, c_pad: int):
+    """The CSR K6 walks: (starts (c_pad + 1,), codes (n_inc,)) of a bucket's
+    unmasked (point p, slot a) incidences, listed by the slot's camera (the
+    band row) and within a row by ascending p, each coded p·16 + a."""
+    d, pk = scam.shape
+    if d > 16 or pk >= 1 << 27:
+        raise ValueError(f"slot incidences: degree {d} or {pk} points do not fit p·16 + a in int32")
+    a, p = np.nonzero(smask > 0)
+    row = scam[a, p]
+    order = np.lexsort((p, row))
+    starts = np.searchsorted(row[order], np.arange(c_pad + 1), side="left")
+    return starts, p[order] * 16 + a[order]
+
+
 def slot_layout_from_numpy(arrays: dict, *, degrees, tiles, widths, pt_pad, n_off_loc: int,
                            n_tracked: int, l2_len: int, n_out: int, band_offsets: tuple,
                            c_pad: int, with_kernel_plans: bool = True,
@@ -246,12 +263,11 @@ def slot_layout_from_numpy(arrays: dict, *, degrees, tiles, widths, pt_pad, n_of
             off_idx[off] = i
     scams = [np.asarray(s).astype(np.int64) for s in arrays["slot_cam"]]
     smasks = [np.asarray(m) for m in arrays["slot_mask"]]
-    row_start = None
+    inc_start = inc = None
     if with_kernel_plans:
-        row_start = tuple(
-            t(np.searchsorted(s[0][:int((m[0] > 0).sum())], np.arange(c_pad + 1),
-                              side="left"), np.int32)
-            for s, m in zip(scams, smasks))
+        plans = [slot_incidences(s, m, c_pad) for s, m in zip(scams, smasks)]
+        inc_start = tuple(t(st, np.int32) for st, _ in plans)
+        inc = tuple(t(code, np.int32) for _, code in plans)
     spans = tuple(int(((s - s[0:1]) * (m > 0)).max()) if s.size else 0
                   for s, m in zip(scams, smasks))
     return SlotLayout(
@@ -260,7 +276,7 @@ def slot_layout_from_numpy(arrays: dict, *, degrees, tiles, widths, pt_pad, n_of
         slot_mask=tuple(t(m, np.float32) for m in smasks),
         vperm=tuple(t(v, np.int32) for v in arrays["vperm"]),
         tile_base=tuple(t(b, np.int32) for b in arrays["tile_base"]),
-        row_start=row_start, off_idx=t(off_idx, np.int32),
+        inc_start=inc_start, inc=inc, off_idx=t(off_idx, np.int32),
         l2_perm=t(arrays["l2_perm"], np.int32), l2_keys=t(arrays["l2_keys"], np.int32),
         degrees=tuple(int(d) for d in degrees), tiles=tuple(int(x) for x in tiles),
         widths=tuple(int(w) for w in widths), pt_pad=tuple(int(p) for p in pt_pad),
