@@ -600,32 +600,43 @@ def main() -> int:
     lam32 = torch.tensor(1e-4, device=dev)
     for name in ("pairblocks", "trackband", "slotband"):
         kernel_fn, plain_fn = band_calls[name]
-        if name != "slotband":
+        if name == "pairblocks":
             results[name]["ms"] = median_ms(torch, lambda: kernel_fn(pd, lam32, plan))
         results[name]["plain_ms"] = median_ms(torch, lambda: plain_fn(pd, lam32, plan), reps=5)
-    # K6 as the band build calls it, adding into the band under assembly, on
-    # K1's clock (replayed CUDA graphs; ms: over copies of W that rotate through
-    # twice the L2, ms_l2: on one copy), and the band build as a whole (K7, K5
-    # and its per-offset adds, K6 in place) launched from Python
+    # K5 and K6 as the band build calls them, adding into the band under
+    # assembly, on K1's clock (replayed CUDA graphs; ms: over copies of W that
+    # rotate through twice the L2, ms_l2: on one copy), and the band build as a
+    # whole (K7, then K5 and K6 adding into the band) launched from Python
     band_buf = torch.zeros((81, plan.k_pad), device=dev)
     w_sets = [[w.clone() for w in pd.slot_W]
               for _ in range(len(value_copies(pd.slot_W[0])) - 1)] + [pd.slot_W]
+    tw_sets = value_copies(pd.trk_W)
 
     def k6_into_band(ws):
         return slot_band_blocks(ws, pd.slot_V, lam32, sl, out=band_buf, **kw)
 
+    def k5_into_band(tw):
+        return fused_track_blocks(tw, pd.trk_V, lam32, tl, out=band_buf, **kw)
+
     results["slotband"]["ms"] = device_ms(torch, [lambda ws=ws: k6_into_band(ws) for ws in w_sets])
     results["slotband"]["ms_l2"] = device_ms(torch, lambda: k6_into_band(pd.slot_W))
+    results["trackband"]["ms"] = device_ms(torch, [lambda tw=tw: k5_into_band(tw)
+                                                   for tw in tw_sets])
+    results["trackband"]["ms_l2"] = device_ms(torch, lambda: k5_into_band(pd.trk_W))
     build_ms = median_ms(torch, lambda: band_calls["blk"][0](pd, lam32, plan))
-    say("kernel", f"K6 adding into a given band, {len(w_sets)} copies of W: "
-                  f"{results['slotband']['ms']:.4f} ms ({results['slotband']['ms_l2']:.4f} from "
-                  f"L2); the whole band build (K7 + K5 + K6 and the adds): {build_ms:.4f} ms")
-    del band_buf, w_sets
+    say("kernel", f"adding into a given band: K5 over {len(tw_sets)} copies of W "
+                  f"{results['trackband']['ms']:.4f} ms ({results['trackband']['ms_l2']:.4f} "
+                  f"from L2), K6 over {len(w_sets)} copies {results['slotband']['ms']:.4f} ms "
+                  f"({results['slotband']['ms_l2']:.4f} from L2); the whole band build (K7, "
+                  f"then K5 and K6 adding into the band): {build_ms:.4f} ms")
+    del band_buf, w_sets, tw_sets
     # inputs read once, outputs written once (K6: its plan is inc_start and inc)
     set_bound("pairblocks", 4 * (63 * plan.n_pairs + plan.k_pad + 1 + 1 + 81 * plan.k_pad),
               n_real * (60 + 135 + 486))
+    # (K5: W and the mask, V, key_start, λ read; the band cells of its dmax
+    # offsets read and written)
     set_bound("trackband", 4 * ((27 + 1) * tl.dmax * tl.pt_pad + 9 * tl.pt_pad + plan.c_pad + 2
-                                + 81 * tl.dmax * plan.c_pad), pair_ops(trk_deg))
+                                + 2 * 81 * tl.dmax * plan.c_pad), pair_ops(trk_deg))
     set_bound("slotband",
               4 * (sum((27 + 2) * d * pk + 9 * pk + plan.c_pad + 1 + inc.numel()
                        for d, pk, inc in zip(sl.degrees, sl.pt_pad, sl.inc))

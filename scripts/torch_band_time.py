@@ -18,7 +18,10 @@ rotate through more than twice the L2's size, so that each call reads it from
 device memory, as in a solve; ``l2``, the same on one copy, which the replays
 find in L2 where it fits. Each kernel is first checked against its plain
 version in f64 (worst (entry, offset) row). Prints the card's name and power
-limit first. A kernel is one entry of ``CASES``: K6 today.
+limit first. A kernel is one entry of ``CASES``: K5 and K6. A tree whose K5
+wrapper has no ``out`` (K5 before it added into the band) is timed as its
+``_compact_blocks`` called it, the kernel and then its dmax slice adds into
+the band, and its bare kernel on a line of its own.
 """
 
 import argparse
@@ -62,9 +65,41 @@ def n_copies(n_bytes, launches=20):
     return min(launches, max(1, -(-2 * L2_BYTES // n_bytes) + 1))
 
 
+def k5(torch, plan, pd, lam, band, kw):
+    """K5 as ``_compact_blocks`` calls it: adding into the band under
+    assembly where its wrapper takes ``out``, else the kernel and then the
+    dmax slice adds of its (dmax·81, c_pad) output; its point data is W.
+    Returns (call on a W, W, plain call in the band's layout, the bare kernel
+    of a tree without ``out`` or None)."""
+    import inspect
+
+    from tpu_ba_torch.kernels.trackband import fused_track_blocks, fused_track_blocks_plain
+
+    tl, cp = plan.track, plan.c_pad
+    takes_out = "out" in inspect.signature(fused_track_blocks).parameters
+
+    def bare(ws):
+        return fused_track_blocks(ws[0], pd.trk_V, lam, tl, **kw)
+
+    def call(ws):
+        if takes_out:
+            return fused_track_blocks(ws[0], pd.trk_V, lam, tl, out=band, **kw)
+        tout = bare(ws)
+        for g in range(tl.dmax):
+            pos = plan.band_offsets.index(g) * cp
+            band[:, pos:pos + cp] += tout[g * 81:(g + 1) * 81, :cp]
+        return band
+
+    def plain(ws, vs, lam_):
+        out = fused_track_blocks_plain(ws[0], vs[0], lam_, tl, **kw)
+        return out.reshape(tl.dmax, 81, cp).transpose(0, 1).reshape(81, tl.dmax * cp)
+
+    return call, [pd.trk_W], (plain, [pd.trk_V]), None if takes_out else bare
+
+
 def k6(torch, plan, pd, lam, band, kw):
     """K6 adding into the band under assembly, as ``_compact_blocks`` calls
-    it; its point data is W. Returns (call on a W, W, plain call)."""
+    it; its point data is W. Returns (call on a W, W, plain call, None)."""
     from tpu_ba_torch.kernels.slotband import slot_band_blocks, slot_band_blocks_plain
 
     def call(ws):
@@ -73,11 +108,12 @@ def k6(torch, plan, pd, lam, band, kw):
     def plain(ws, vs, lam_):
         return slot_band_blocks_plain(ws, vs, lam_, plan.slot, **kw)
 
-    return call, list(pd.slot_W), (plain, list(pd.slot_V))
+    return call, list(pd.slot_W), (plain, list(pd.slot_V)), None
 
 
-# name → maker of (call on the point data, the point data, (plain, its other inputs))
-CASES = {"K6 slotband": k6}
+# name → maker of (call on the point data, the point data, (plain, its other
+# inputs), the bare kernel where the call is more than the kernel, or None)
+CASES = {"K5 trackband": k5, "K6 slotband": k6}
 
 
 def main() -> int:
@@ -114,10 +150,10 @@ def main() -> int:
     print(f"root {root}; lam {args.lam:g}; ms per call: cold / l2", flush=True)
     for name, make in CASES.items():
         band = torch.zeros((81, plan.k_pad), device=dev)
-        call, data, (plain, rest) = make(torch, plan, pd, lam, band, kw)
+        call, data, (plain, rest), bare = make(torch, plan, pd, lam, band, kw)
         # the kernel's contribution against the plain version in f64
-        got = call(data)[:, :plan.k_band].double()
         ref = plain([t.double() for t in data], [t.double() for t in rest], lam.double())
+        got = call(data)[:, :ref.shape[1]].double()
         scale = ref.abs().amax(1).clamp_min(1e-300)
         worst = ((got - ref).abs().amax(1) / scale).max().item()
         n_bytes = sum(t.numel() * t.element_size() for t in data)
@@ -126,6 +162,11 @@ def main() -> int:
         l2 = replay_ms(torch, [lambda: call(data)])
         print(f"{name:16s} {len(sets):2d} copies of {n_bytes / 1e6:.1f} MB | {cold:.4f} / {l2:.4f}"
               f" | worst (entry, offset) row {worst:.2e} from f64", flush=True)
+        if bare is not None:
+            cold = replay_ms(torch, [lambda s=s: bare(s) for s in sets])
+            l2 = replay_ms(torch, [lambda: bare(data)])
+            print(f"{name + ' bare':16s} {len(sets):2d} copies of {n_bytes / 1e6:.1f} MB | "
+                  f"{cold:.4f} / {l2:.4f} | the kernel alone, without the slice adds", flush=True)
         del sets, band
     return 0
 

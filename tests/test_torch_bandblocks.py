@@ -215,3 +215,27 @@ def test_compact_blocks_with_kernel_plans_take_the_wrappers_plain_route_on_cpu(m
     assert bare.slot.inc is None
     without = port_pairs._compact_blocks(m["Bp"], lam, bare, m["pdp"], FLOOR, CEIL)
     assert torch.equal(with_plans, without)
+
+
+@pytest.mark.parametrize("lam", LAMS)
+def test_track_blocks_add_into_the_band_they_are_given(mixed, lam):
+    """``out=``: on the CPU the plain version's (dmax·81, c_pad) rows land on
+    top of the band in its layout, offset g of entry e at columns
+    g·c_pad..(g+1)·c_pad of row e; the columns behind dmax·c_pad are left
+    alone, and a band narrower than that grid is refused."""
+    m = mixed[np.float32]
+    tl, pdp = m["pp"].track, m["pdp"]
+    kw = dict(dc=9, diag_floor=FLOOR, diag_ceil=CEIL)
+    lam_t = torch.tensor(lam)
+    plain = fused_track_blocks_plain(pdp.trk_W, pdp.trk_V, lam_t, tl, **kw)
+    band = torch.from_numpy(np.random.default_rng(4).normal(size=(81, m["pp"].k_pad))
+                            .astype(np.float32))
+    want = band.clone()
+    cp = tl.n_out
+    for g in range(tl.dmax):
+        want[:, g * cp:(g + 1) * cp] += plain[g * 81:(g + 1) * 81]
+    got = fused_track_blocks(pdp.trk_W, pdp.trk_V, lam_t, tl, out=band, **kw)
+    assert got is band and torch.equal(band, want)
+    assert m["pp"].k_pad > tl.dmax * cp
+    with pytest.raises(ValueError):
+        fused_track_blocks(pdp.trk_W, pdp.trk_V, lam_t, tl, out=band[:, :tl.dmax * cp - 1], **kw)

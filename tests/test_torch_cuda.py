@@ -319,6 +319,17 @@ def _incidence(case):
         rng = np.random.default_rng(int(case[5:]))
         return C, [np.sort(c + rng.choice(17, deg, replace=False))
                    for c in range(3, C - 8 - 16) for deg in rng.integers(2, 17, 5)]
+    if case.startswith("tracks"):  # consecutive tracks of degree 1–8 from 30 cameras: runs of
+        C = 30                     # 0–56 points a key, empty keys, a key of 150 (over three
+        rng = np.random.default_rng(int(case[6:]))     # chunks); seeded by the case's suffix;
+        rows = []                  # under 1,000 points, so that no point repeats (see below)
+        for c in range(C):
+            n = 150 if c == 5 else (0 if rng.random() < 0.2 else int(rng.integers(0, 57)))
+            degs = np.minimum(rng.integers(1, 9, n), C - c)   # tracks end at the last camera
+            if c == 5:
+                degs[:8] = np.arange(1, 9)
+            rows += [np.arange(c, c + d) for d in degs]
+        return C, rows
     if case == "long":            # 30,011 cameras: more camera groups than resident PCG blocks
         C = 30011
         return C, [np.arange(c, min(c + 3, C)) for c in range(C)]
@@ -515,6 +526,49 @@ def test_slot_kernel_on_random_layouts(dev, seed, given):
             assert torch.all(outs[0][:, ref.abs().sum(0) == 0] == 0)
         assert torch.equal(outs[0], outs[1])
         _held_to_plain_f32(outs[0], plain, ref, f"slotband lam {lam:g}")
+
+
+@pytest.mark.parametrize("given", [False, True], ids=["fresh", "given"])
+@pytest.mark.parametrize("seed", [1, 2])
+def test_track_kernel_on_random_layouts(dev, seed, given):
+    """Consecutive tracks of degree 1–8 (the kernel's cap), runs of 0 to 150
+    points a key (empty keys, a key over three chunks), tracks that end at the
+    last camera: K5 per (entry, offset) row against the plain version in f64,
+    into a fresh grid or on top of a band it is given, and the same bits on a
+    second call. A given band ends as the band plus the fresh output in its
+    layout, bit for bit."""
+    B, plan = _band_system(dev, f"tracks{seed}")
+    tl = plan.track
+    assert tl is not None and tl.dmax == 8 and plan.slot is None
+    ks = tl.key_start.cpu().numpy()
+    runs = np.diff(ks[:plan.n_cameras + 1])
+    assert (runs == 0).any() and runs.max() > 96                     # empty keys, a long run
+    deg = tl.slot_mask.sum(0)[:tl.n_tracked]
+    assert int((tl.keys[:tl.n_tracked] + deg.int()).max()) == plan.n_cameras   # ends at C−1
+    assert set(deg.int().tolist()) == set(range(1, 9))
+    pd, pd64 = pairs_mod.precompute_pair_data(B, plan), pairs_mod.precompute_pair_data(_f64(B), plan)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cp = plan.c_pad
+    for lam in (1e-4, 1.0):
+        lam32 = torch.tensor(lam, device=dev)
+        ref = fused_track_blocks_plain(pd64.trk_W, pd64.trk_V, lam32.double(), tl, **BAND_KW)
+        plain = fused_track_blocks_plain(pd.trk_W, pd.trk_V, lam32, tl, **BAND_KW)
+        fresh = fused_track_blocks(pd.trk_W, pd.trk_V, lam32, tl, **BAND_KW)
+        assert fresh.shape == (tl.dmax * 81, cp)
+        assert torch.equal(fresh, fused_track_blocks(pd.trk_W, pd.trk_V, lam32, tl, **BAND_KW))
+        _held_to_plain_f32(fresh, plain, ref, f"trackband lam {lam:g}")
+        assert torch.all(fresh[:, ref.abs().sum(0) == 0] == 0)
+        if given:
+            band = (ref.abs().max() * torch.randn((81, plan.k_pad), device=dev,
+                                                  generator=gen)).float()
+            want = band.clone()
+            want[:, :tl.dmax * cp] += fresh.reshape(tl.dmax, 81, cp).transpose(0, 1).reshape(81, -1)
+            outs = [fused_track_blocks(pd.trk_W, pd.trk_V, lam32, tl, out=band.clone(),
+                                       **BAND_KW) for _ in range(2)]
+            assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], want)
+    with pytest.raises(ValueError):          # a band narrower than the grid
+        fused_track_blocks(pd.trk_W, pd.trk_V, lam32, tl,
+                           out=torch.zeros((81, tl.dmax * cp - 1), device=dev), **BAND_KW)
 
 
 def _pcg_inputs(dev, case, lam=1.0, **plan_kw):

@@ -43,9 +43,9 @@ _SIGNATURES = {
     # packed, seg_start, lam, out, n_pairs, k_pad, group_log2, diag_floor,
     # diag_ceil, stream
     "tba_pair_blocks": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
-    # Wt, Vt, mask, key_start, lam, out, dmax, pt_pad, c_pad, diag_floor,
+    # Wt, Vt, mask, key_start, lam, out, dmax, pt_pad, c_pad, ld_out, diag_floor,
     # diag_ceil, stream
-    "tba_track_blocks": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    "tba_track_blocks": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     # W, cam, mask, V, inc_start, inc, off_idx, lam, out, degree, pt_pad,
     # c_pad, ld_out, diag_floor, diag_ceil, stream
     "tba_slot_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],

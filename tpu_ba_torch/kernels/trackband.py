@@ -3,9 +3,11 @@
 Replaces the Pallas kernel ``tpu_ba/kernels/trackband.py:fused_track_blocks``.
 For a tracked point with start camera c0 and slots a ≤ b the block
 ``W_a (V_p + λ·clip(diag V_p))⁻¹ W_bᵀ`` is added to band offset b−a at row
-c0+a, giving ``(dmax·81, c_pad)``. The CUDA kernel
-(``tpu_ba_torch/csrc/trackband.cu``) runs one block per band column over the
-contiguous run of points that write it, read from ``layout.key_start``.
+c0+a, giving ``(dmax·81, c_pad)``, or added straight into the band under
+assembly, whose first dmax offsets are 0..dmax−1. The CUDA kernel
+(``tpu_ba_torch/csrc/trackband.cu``) runs one block per tile of 4 band rows
+over the contiguous runs of points that write them, read from
+``layout.key_start``, staging each point once per tile.
 """
 
 from __future__ import annotations
@@ -35,32 +37,51 @@ def fused_track_blocks_plain(Wt, Vt, lam, layout, *, dc: int = 9, diag_floor: fl
 
 
 def fused_track_blocks(Wt, Vt, lam, layout, *, dc: int = 9, diag_floor: float,
-                       diag_ceil: float):
-    """Band-row contributions (dmax·81, c_pad) of the tracked points at
-    damping ``lam`` (a 0-dim tensor). Wt (27, dmax, Pt), Vt (9, Pt) from
-    ``solver/tracks.py:gather_track_data``. A CPU tensor takes the plain
-    version; a CUDA tensor launches K5."""
+                       diag_ceil: float, out=None):
+    """Band-row contributions of the tracked points at damping ``lam`` (a
+    0-dim tensor). Wt (27, dmax, Pt), Vt (9, Pt) from
+    ``solver/tracks.py:gather_track_data``. Without ``out``: a fresh
+    (dmax·81, c_pad), row g·81 + e holding entry e of band offset g. With
+    ``out`` (81, ≥ dmax·c_pad), the band under assembly: cell (offset g,
+    entry e, row r) is added to ``out[e, g·c_pad + r]`` in place and ``out``
+    is returned. A CPU tensor takes the plain version; a CUDA tensor launches
+    K5."""
+    dmax, c_pad = layout.dmax, layout.n_out
+    d2 = dc * dc
+    if out is not None and (out.dim() != 2 or out.shape[0] != d2 or out.shape[1] < dmax * c_pad):
+        raise ValueError(f"fused_track_blocks: out of shape {tuple(out.shape)}, expected "
+                         f"({d2}, >= {dmax * c_pad})")
     if Wt.device.type == "cpu":
-        return fused_track_blocks_plain(Wt, Vt, lam, layout, dc=dc, diag_floor=diag_floor,
-                                        diag_ceil=diag_ceil)
+        res = fused_track_blocks_plain(Wt, Vt, lam, layout, dc=dc, diag_floor=diag_floor,
+                                       diag_ceil=diag_ceil)
+        if out is None:
+            return res
+        out[:, :dmax * c_pad] += res.reshape(dmax, d2, c_pad).transpose(0, 1).reshape(d2, -1)
+        return out
     if dc != 9:
         raise ValueError(f"fused_track_blocks: the kernel takes 9-parameter cameras, got dc={dc}")
     if layout.key_start is None:
         raise ValueError("fused_track_blocks on CUDA needs layout.key_start "
                          "(build the layout with with_kernel_plans=True)")
     dev = Wt.device
-    dmax, pt, c_pad = layout.dmax, layout.pt_pad, layout.n_out
+    pt = layout.pt_pad
     _lib.check_tensor("Wt", Wt, torch.float32, (27, dmax, pt), dev)
     _lib.check_tensor("Vt", Vt, torch.float32, (9, pt), dev)
     _lib.check_tensor("slot_mask", layout.slot_mask, torch.float32, (dmax, pt), dev)
     _lib.check_tensor("key_start", layout.key_start, torch.int32, (c_pad + 1,), dev)
     _lib.check_tensor("lam", lam, torch.float32, (), dev)
+    grid = out
+    if grid is None:
+        grid = torch.zeros((81, dmax * c_pad), dtype=torch.float32, device=dev)
+    else:
+        _lib.check_tensor("out", out, torch.float32, tuple(out.shape), dev)
     lib = _lib.load_library()
-    out = torch.empty((dmax * 81, c_pad), dtype=torch.float32, device=dev)
     status = lib.tba_track_blocks(Wt.data_ptr(), Vt.data_ptr(), layout.slot_mask.data_ptr(),
-                                  layout.key_start.data_ptr(), lam.data_ptr(), out.data_ptr(),
-                                  dmax, pt, c_pad, float(diag_floor), float(diag_ceil),
-                                  _lib.stream_ptr(Wt))
+                                  layout.key_start.data_ptr(), lam.data_ptr(), grid.data_ptr(),
+                                  dmax, pt, c_pad, grid.shape[1], float(diag_floor),
+                                  float(diag_ceil), _lib.stream_ptr(Wt))
     _lib.launches["trackband"] += 1
     _lib.check_status("trackband", status)
-    return out
+    if out is not None:
+        return out
+    return grid.reshape(81, dmax, c_pad).transpose(0, 1).reshape(dmax * 81, c_pad)

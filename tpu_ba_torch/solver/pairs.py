@@ -621,7 +621,8 @@ def _compact_blocks(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData,
     """blk (dc², k_pad): the K nonzero (dc×dc) blocks of T = W V_λ⁻¹ Wᵀ in
     compact segment order (blk[dc·i+j, k] = T_{seg_ci[k], seg_cj[k]}[i, j]);
     columns ≥ K are exact zeros. A plan built with kernel plans goes through
-    the K7/K5/K6 wrappers, any other through the plain versions."""
+    the K7/K5/K6 wrappers (K5 and K6 adding into blk in place), any other
+    through the plain versions."""
     dc = B.U.shape[-1]
     kw = dict(dc=dc, diag_floor=diag_floor, diag_ceil=diag_ceil)
     if pairs.seg_start is not None:
@@ -637,13 +638,19 @@ def _compact_blocks(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData,
         # slot pair (a, b) of a track starting at c0 is band block
         # (offset b−a, row c0+a), added on top of the enumerated pairs
         tl = pairs.track
-        build = fused_track_blocks if tl.key_start is not None else fused_track_blocks_plain
-        tout = build(pair_data.trk_W, pair_data.trk_V, lam, tl, **kw)
-        d2 = dc * dc
-        cp = pairs.c_pad
-        for g in range(tl.dmax):
-            pos = pairs.band_offsets.index(g) * cp
-            blk[:, pos:pos + cp] += tout[g * d2:(g + 1) * d2, :cp]
+        if tl.key_start is not None:
+            # build_pair_plan puts the track offsets 0..dmax−1 first in the
+            # band, so the kernel's grid is the band's first dmax·c_pad columns
+            assert pairs.band_offsets[:tl.dmax] == tuple(range(tl.dmax))
+            assert tl.n_out == pairs.c_pad
+            fused_track_blocks(pair_data.trk_W, pair_data.trk_V, lam, tl, out=blk, **kw)
+        else:
+            tout = fused_track_blocks_plain(pair_data.trk_W, pair_data.trk_V, lam, tl, **kw)
+            d2 = dc * dc
+            cp = pairs.c_pad
+            for g in range(tl.dmax):
+                pos = pairs.band_offsets.index(g) * cp
+                blk[:, pos:pos + cp] += tout[g * d2:(g + 1) * d2, :cp]
 
     if pairs.slot is not None:
         # the slot build works on the off-major band grid itself, the layout
