@@ -13,7 +13,8 @@ Phases, one line each (the end-to-end phase a few):
                operations over 67 TFLOP/s, whichever is larger). K1–K3 on the
                problem's initial parameters; K7, K5, K6, K4 and K8 on that
                linearization's W, V, U and right-hand side and the port's own
-               pair plan, whose shapes are printed and checked. K8 (the PCG
+               pair plan, whose shapes (and K7's schedule) are printed and
+               checked; K7, K5 and K6 timed as replayed CUDA graphs. K8 (the PCG
                kernel with Ul and the preconditioner given) in its
                block-tridiagonal form at λ = 1 and at the smallest λ of a
                short list where the tridiagonal part of S is positive
@@ -45,7 +46,8 @@ Phases, one line each (the end-to-end phase a few):
   8. venice  — venice-1778 with community covisibility (1,778 cameras,
                993,923 points, 5,001,946 observations) at its golden's
                config: the plan is not banded, K1 and K7 against their plain
-               versions at this problem's shapes, then two solves through
+               versions at this problem's shapes (K7's schedule printed),
+               then two solves through
                "schur_sparse_pallas": final cost within 1% of
                data/goldens/venice-1778-community.json, K7, K1, K2, K3
                launched and K4–K6, K8 not, the same cost and CG total on the
@@ -207,6 +209,15 @@ def value_copies(vals, launches=20):
     for each replayed launch at most)."""
     n = min(launches, max(1, -(-2 * L2_BYTES // (vals.numel() * vals.element_size())) + 1))
     return [vals] + [vals.clone() for _ in range(n - 1)]
+
+
+def describe_schedule(s):
+    """K7's schedule (``PairSchedule``) in words."""
+    from tpu_ba_torch.kernels.pairblocks import PIECE_PAIRS
+    return (f"G {1 << s.group_log2} lanes a short segment (at most {s.cut} pairs): "
+            f"{s.items.shape[1]} short items; {s.fold_seg.shape[0]} split segments in "
+            f"{s.pieces.shape[1]} pieces of at most {PIECE_PAIRS} pairs; {s.empty.shape[0]} empty "
+            f"segments; longest segment {s.longest} pairs")
 
 
 def bound(n_bytes, n_ops):
@@ -513,11 +524,12 @@ def main() -> int:
                 f" (pt_pad {got['slot_pt_pad']}, l2_len {got['slot_l2_len']}, spans {sl.spans}, "
                 f"{[int(i.numel()) for i in sl.inc]} incidences); {plan.n_pairs} "
                 f"padded pairs; PCG working set {band_l2_bytes(plan) / 2**20:.2f} MiB")
+    say("plan", f"K7 schedule: {describe_schedule(plan.pair_sched)}")
     if got != EXPECTED_PLAN:
         diff = {k: (got[k], EXPECTED_PLAN[k]) for k in got if got[k] != EXPECTED_PLAN[k]}
         raise AssertionError(f"pair plan differs from the reference's (got, expected): {diff}")
     plain_plan = dataclasses.replace(
-        plan, seg_start=None, track=dataclasses.replace(tl, key_start=None),
+        plan, seg_start=None, pair_sched=None, track=dataclasses.replace(tl, key_start=None),
         slot=dataclasses.replace(sl, inc_start=None, inc=None))
 
     def linearize(prob, pl):
@@ -551,7 +563,8 @@ def main() -> int:
 
     band_calls = {
         "pairblocks": (
-            lambda d, l, p: fused_pair_blocks(d.packed, p.pair_seg, l, p.k_pad, p.seg_start, **kw),
+            lambda d, l, p: fused_pair_blocks(d.packed, p.pair_seg, l, p.k_pad, p.pair_sched,
+                                              **kw),
             lambda d, l, p: fused_pair_blocks_plain(d.packed, p.pair_seg, l, p.k_pad, **kw)),
         "trackband": (
             lambda d, l, p: fused_track_blocks(d.trk_W, d.trk_V, l, p.track, **kw),
@@ -600,13 +613,19 @@ def main() -> int:
     lam32 = torch.tensor(1e-4, device=dev)
     for name in ("pairblocks", "trackband", "slotband"):
         kernel_fn, plain_fn = band_calls[name]
-        if name == "pairblocks":
-            results[name]["ms"] = median_ms(torch, lambda: kernel_fn(pd, lam32, plan))
         results[name]["plain_ms"] = median_ms(torch, lambda: plain_fn(pd, lam32, plan), reps=5)
-    # K5 and K6 as the band build calls them, adding into the band under
-    # assembly, on K1's clock (replayed CUDA graphs; ms: over copies of W that
-    # rotate through twice the L2, ms_l2: on one copy), and the band build as a
-    # whole (K7, then K5 and K6 adding into the band) launched from Python
+    # K7, and K5 and K6 as the band build calls them, adding into the band
+    # under assembly, on K1's clock (replayed CUDA graphs; ms: over copies of
+    # packed or W that rotate through twice the L2, ms_l2: on one copy), and
+    # the band build as a whole (K7, then K5 and K6 adding into the band)
+    # launched from Python
+    k7_fn = band_calls["pairblocks"][0]
+    packed_sets = value_copies(pd.packed)
+    results["pairblocks"]["ms"] = device_ms(
+        torch, [lambda pk=pk: k7_fn(pd._replace(packed=pk), lam32, plan) for pk in packed_sets])
+    results["pairblocks"]["ms_l2"] = device_ms(torch, lambda: k7_fn(pd, lam32, plan))
+    n_packed = len(packed_sets)
+    del packed_sets
     band_buf = torch.zeros((81, plan.k_pad), device=dev)
     w_sets = [[w.clone() for w in pd.slot_W]
               for _ in range(len(value_copies(pd.slot_W[0])) - 1)] + [pd.slot_W]
@@ -624,7 +643,9 @@ def main() -> int:
                                                    for tw in tw_sets])
     results["trackband"]["ms_l2"] = device_ms(torch, lambda: k5_into_band(pd.trk_W))
     build_ms = median_ms(torch, lambda: band_calls["blk"][0](pd, lam32, plan))
-    say("kernel", f"adding into a given band: K5 over {len(tw_sets)} copies of W "
+    say("kernel", f"K7 over {n_packed} copies of packed "
+                  f"{results['pairblocks']['ms']:.4f} ms ({results['pairblocks']['ms_l2']:.4f} "
+                  f"from L2); adding into a given band: K5 over {len(tw_sets)} copies of W "
                   f"{results['trackband']['ms']:.4f} ms ({results['trackband']['ms_l2']:.4f} "
                   f"from L2), K6 over {len(w_sets)} copies {results['slotband']['ms']:.4f} ms "
                   f"({results['slotband']['ms_l2']:.4f} from L2); the whole band build (K7, "
@@ -1195,6 +1216,7 @@ def main() -> int:
                   f"padded to {Ov}; generated in {gen_s:.1f} s, plans built in {plan_s:.1f} s: "
                   f"banded {vplan.banded}, {vplan.n_segments} segments (k_pad {vplan.k_pad}), "
                   f"{n_real} pairs padded to {vplan.n_pairs}, {vplan.n_heavy_pts} heavy points")
+    say("venice", f"K7 schedule: {describe_schedule(vplan.pair_sched)}")
     if (vplan.banded or vplan.track is not None or vplan.slot is not None
             or vplan.ci_start is None or vplan.cj_start is None):
         raise AssertionError("the community plan is banded or lacks the compact matvec's starts")
@@ -1222,7 +1244,7 @@ def main() -> int:
     kw7 = dict(dc=9, diag_floor=cfg_floor, diag_ceil=cfg_ceil)
     for lam in (1e-4, 1.0):
         lam32 = torch.tensor(lam, device=dev)
-        out = fused_pair_blocks(vpd.packed, vplan.pair_seg, lam32, kp, vplan.seg_start, **kw7)
+        out = fused_pair_blocks(vpd.packed, vplan.pair_seg, lam32, kp, vplan.pair_sched, **kw7)
         if out[:, -1].abs().max().item() != 0.0:
             raise AssertionError("K7 wrote into the trash segment of the padding pairs")
         plain = fused_pair_blocks_plain(vpd.packed, vplan.pair_seg, lam32, kp, **kw7)
@@ -1243,7 +1265,7 @@ def main() -> int:
     lam32 = torch.tensor(1e-4, device=dev)
     r7 = results["pairblocks"]
     r7["ms_venice"] = median_ms(torch, lambda: fused_pair_blocks(
-        vpd.packed, vplan.pair_seg, lam32, kp, vplan.seg_start, **kw7), reps=10)
+        vpd.packed, vplan.pair_seg, lam32, kp, vplan.pair_sched, **kw7), reps=10)
     r7["plain_ms_venice"] = median_ms(torch, lambda: fused_pair_blocks_plain(
         vpd.packed, vplan.pair_seg, lam32, kp, **kw7), reps=3, warmup=1)
     r7["bound_ms_venice"], by7 = bound(4 * (63 * vplan.n_pairs + kp + 2 + 81 * kp),

@@ -2,7 +2,7 @@
 """Time the band-build kernels of ladybug-1723 as ``_compact_blocks`` calls
 them, for one tree of the port, on one CUDA card.
 
-    python3 scripts/torch_band_time.py [--root DIR] [--lam 1e-4]
+    python3 scripts/torch_band_time.py [--root DIR] [--lam 1e-4] [--venice]
 
 ``--root`` is the directory that holds the ``tpu_ba_torch`` package to time
 (default: this checkout). To compare two commits, unpack the other with
@@ -18,10 +18,18 @@ rotate through more than twice the L2's size, so that each call reads it from
 device memory, as in a solve; ``l2``, the same on one copy, which the replays
 find in L2 where it fits. Each kernel is first checked against its plain
 version in f64 (worst (entry, offset) row). Prints the card's name and power
-limit first. A kernel is one entry of ``CASES``: K5 and K6. A tree whose K5
-wrapper has no ``out`` (K5 before it added into the band) is timed as its
+limit first. A kernel is one entry of ``CASES``: K7, K5 and K6. A tree whose
+K5 wrapper has no ``out`` (K5 before it added into the band) is timed as its
 ``_compact_blocks`` called it, the kernel and then its dmax slice adds into
-the band, and its bare kernel on a line of its own.
+the band, and its bare kernel on a line of its own. K7 takes the plan's
+schedule (``PairPlan.pair_sched``), or its CSR starts in a tree that has no
+schedule (K7 before it was split by pairs).
+
+``--venice`` also times K7 at venice-1778-community's shape (non-banded,
+15.8 M pairs into 665,600 segments; generated into ``data/cache/`` under the
+working directory on the first run, ~50 s, and read from there after): the
+median of 10 calls between CUDA events, after the same check against f64.
+Its 4 GB of pair data are read from device memory on every call.
 """
 
 import argparse
@@ -97,6 +105,25 @@ def k5(torch, plan, pd, lam, band, kw):
     return call, [pd.trk_W], (plain, [pd.trk_V]), None if takes_out else bare
 
 
+def k7(torch, plan, pd, lam, band, kw):
+    """K7 over the plan's pairs into a fresh (81, k_pad) output; its data is
+    ``packed``. Returns (call on packed, packed, plain call, None)."""
+    from tpu_ba_torch.kernels.pairblocks import fused_pair_blocks, fused_pair_blocks_plain
+
+    sched = getattr(plan, "pair_sched", None)
+    sched = plan.seg_start if sched is None else sched
+
+    def call(ws):
+        return fused_pair_blocks(ws[0], plan.pair_seg, lam, plan.k_pad, sched, **kw)
+
+    def plain(ws, vs, lam_):
+        out = fused_pair_blocks_plain(ws[0], plan.pair_seg, lam_, plan.k_pad, **kw)
+        out[:, -1] = 0.0            # the padding pairs' trash segment: zero from the kernel
+        return out
+
+    return call, [pd.packed], (plain, []), None
+
+
 def k6(torch, plan, pd, lam, band, kw):
     """K6 adding into the band under assembly, as ``_compact_blocks`` calls
     it; its point data is W. Returns (call on a W, W, plain call, None)."""
@@ -113,13 +140,60 @@ def k6(torch, plan, pd, lam, band, kw):
 
 # name → maker of (call on the point data, the point data, (plain, its other
 # inputs), the bare kernel where the call is more than the kernel, or None)
-CASES = {"K5 trackband": k5, "K6 slotband": k6}
+CASES = {"K7 pairblocks": k7, "K5 trackband": k5, "K6 slotband": k6}
+
+
+def worst_row(got, ref):
+    """Worst row's max abs error over that row's max |ref|."""
+    scale = ref.abs().amax(1).clamp_min(1e-300)
+    return ((got.double() - ref).abs().amax(1) / scale).max().item()
+
+
+def system(p, jacobian_blocks_bal, assemble):
+    r, Jc, Jp = jacobian_blocks_bal(p.cameras, p.points, p.obs_2d, p.cam_idx, p.pt_idx, p.mask)
+    B = assemble(r, Jc, Jp, p.cam_idx, p.pt_idx, p.n_cameras, p.n_points, mask=p.mask)
+    return B._replace(U=B.U.contiguous(), W=B.W.contiguous())
+
+
+def venice_k7(torch, lam, kw):
+    """K7 at venice-1778-community's shape: ms a call (eager events) and the
+    worst row against f64."""
+    from tpu_ba_torch.core import LMConfig
+    from tpu_ba_torch.io.bal import make_bal_like_problem
+    from tpu_ba_torch.jacobians.analytic import jacobian_blocks_bal
+    from tpu_ba_torch.kernels.pairblocks import fused_pair_blocks_plain
+    from tpu_ba_torch.solver import pairs as pairs_mod
+    from tpu_ba_torch.solver.lm import build_solver_plans
+    from tpu_ba_torch.solver.normal import assemble
+
+    dev = lam.device
+    p, _ = make_bal_like_problem("venice-1778", covis="community", dtype=torch.float32,
+                                 device=dev)
+    _, plan = build_solver_plans(p, LMConfig(linear_solver="schur_sparse_pallas"))
+    pd = pairs_mod.precompute_pair_data(system(p, jacobian_blocks_bal, assemble), plan)
+    call, data, _, _ = k7(torch, plan, pd, lam, None, kw)
+    # f64 over the real pairs only, in chunks: the trash segment stays 0
+    n_real = int((plan.pair_key < p.n_cameras ** 2).sum())
+    ref = torch.zeros((81, plan.k_pad), dtype=torch.float64, device=dev)
+    step = 1 << 20
+    for a0 in range(0, n_real, step):
+        a1 = min(a0 + step, n_real)
+        ref += fused_pair_blocks_plain(data[0][:, a0:a1].double(), plan.pair_seg[a0:a1],
+                                       lam.double(), plan.k_pad, **kw)
+    worst = worst_row(call(data), ref)
+    del ref
+    ms = event_ms(torch, lambda: call(data))
+    n_bytes = data[0].numel() * data[0].element_size()
+    print(f"{'K7 venice':16s} {n_real} pairs, {n_bytes / 1e9:.2f} GB of packed | {ms:.4f} ms "
+          f"(eager events, median of 10) | worst row {worst:.2e} from f64", flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--lam", type=float, default=1e-4)
+    ap.add_argument("--venice", action="store_true",
+                    help="also time K7 at venice-1778-community's shape")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -139,9 +213,7 @@ def main() -> int:
     print(smi.stdout.strip(), flush=True)
     dev = torch.device("cuda")
     p, _ = make_bal_like_problem("ladybug-1723", dtype=torch.float32, device=dev)
-    r, Jc, Jp = jacobian_blocks_bal(p.cameras, p.points, p.obs_2d, p.cam_idx, p.pt_idx, p.mask)
-    B = assemble(r, Jc, Jp, p.cam_idx, p.pt_idx, p.n_cameras, p.n_points, mask=p.mask)
-    B = B._replace(U=B.U.contiguous(), W=B.W.contiguous())
+    B = system(p, jacobian_blocks_bal, assemble)
     plan = pairs_mod.build_pair_plan(p.cam_idx, p.pt_idx, p.n_obs, p.n_cameras, p.n_points,
                                      with_kernel_plans=True, symmetric=True)
     pd = pairs_mod.precompute_pair_data(B, plan)
@@ -153,9 +225,7 @@ def main() -> int:
         call, data, (plain, rest), bare = make(torch, plan, pd, lam, band, kw)
         # the kernel's contribution against the plain version in f64
         ref = plain([t.double() for t in data], [t.double() for t in rest], lam.double())
-        got = call(data)[:, :ref.shape[1]].double()
-        scale = ref.abs().amax(1).clamp_min(1e-300)
-        worst = ((got - ref).abs().amax(1) / scale).max().item()
+        worst = worst_row(call(data)[:, :ref.shape[1]], ref)
         n_bytes = sum(t.numel() * t.element_size() for t in data)
         sets = [data] + [[t.clone() for t in data] for _ in range(n_copies(n_bytes) - 1)]
         cold = replay_ms(torch, [lambda s=s: call(s) for s in sets])
@@ -168,6 +238,10 @@ def main() -> int:
             print(f"{name + ' bare':16s} {len(sets):2d} copies of {n_bytes / 1e6:.1f} MB | "
                   f"{cold:.4f} / {l2:.4f} | the kernel alone, without the slice adds", flush=True)
         del sets, band
+    if args.venice:
+        del pd, plan, B, p
+        torch.cuda.empty_cache()
+        venice_k7(torch, lam, kw)
     return 0
 
 

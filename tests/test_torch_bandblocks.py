@@ -141,7 +141,7 @@ def test_plain_versions_match_reference(mixed, kernel, dtype, tol):
         lam_t = torch.tensor(lam, dtype=DT[dtype])
         if kernel == "pair":
             plain = fused_pair_blocks_plain(pdp.packed, pp.pair_seg, lam_t, pp.k_pad, **kw)
-            wrapped = fused_pair_blocks(pdp.packed, pp.pair_seg, lam_t, pp.k_pad, pp.seg_start,
+            wrapped = fused_pair_blocks(pdp.packed, pp.pair_seg, lam_t, pp.k_pad, pp.pair_sched,
                                         **kw)
         elif kernel == "track":
             plain = fused_track_blocks_plain(pdp.trk_W, pdp.trk_V, lam_t, pp.track, **kw)
@@ -212,6 +212,7 @@ def test_compact_blocks_with_kernel_plans_take_the_wrappers_plain_route_on_cpu(m
     with_plans = port_pairs._compact_blocks(m["Bp"], lam, m["pp"], m["pdp"], FLOOR, CEIL)
     bare = plan_to_port(m["plan"], with_kernel_plans=False)
     assert bare.seg_start is None and bare.track.key_start is None and bare.slot.inc_start is None
+    assert bare.pair_sched is None and m["pp"].pair_sched is not None
     assert bare.slot.inc is None
     without = port_pairs._compact_blocks(m["Bp"], lam, bare, m["pdp"], FLOOR, CEIL)
     assert torch.equal(with_plans, without)

@@ -36,7 +36,8 @@ from tpu_ba_torch.kernels import _lib
 from tpu_ba_torch.kernels.linearize import (fused_cost, fused_cost_plain,
                                             fused_linearize_assemble,
                                             fused_linearize_assemble_plain)
-from tpu_ba_torch.kernels.pairblocks import fused_pair_blocks, fused_pair_blocks_plain
+from tpu_ba_torch.kernels.pairblocks import (fused_pair_blocks, fused_pair_blocks_plain,
+                                             pair_schedule)
 from tpu_ba_torch.kernels import pcg_band as pcg_band_mod
 from tpu_ba_torch.kernels.pcg_band import fold_damp_prologue, pcg_banded, pcg_banded_plain
 from tpu_ba_torch.kernels.segsum import (BLOCK_LOG2, group_log2, sorted_segment_sum_t,
@@ -404,9 +405,9 @@ def test_band_build_kernels_match_plain(dev, case, plan_kw):
     for lam in (1e-4, 1.0):
         lam32 = torch.tensor(lam, device=dev)
         lam64 = lam32.double()
-        out = fused_pair_blocks(pd.packed, plan.pair_seg, lam32, plan.k_pad, plan.seg_start,
+        out = fused_pair_blocks(pd.packed, plan.pair_seg, lam32, plan.k_pad, plan.pair_sched,
                                 **BAND_KW)
-        again = fused_pair_blocks(pd.packed, plan.pair_seg, lam32, plan.k_pad, plan.seg_start,
+        again = fused_pair_blocks(pd.packed, plan.pair_seg, lam32, plan.k_pad, plan.pair_sched,
                                   **BAND_KW)
         assert torch.equal(out, again)                                 # the same bits every run
         ref = fused_pair_blocks_plain(pd64.packed, plan.pair_seg, lam64, plan.k_pad, **BAND_KW)
@@ -450,6 +451,55 @@ def test_band_build_kernels_match_plain(dev, case, plan_kw):
     assert _lib.launches["pairblocks"] == before["pairblocks"] + 8
     assert (_lib.launches["trackband"] > before["trackband"]) == (plan.track is not None)
     assert (_lib.launches["slotband"] > before["slotband"]) == (plan.slot is not None)
+
+
+def _long_segment_pairs(seed=4):
+    """(pair_seg, packed (63, Np) f64, k_pad, n_real): 700 segments of
+    heavy-tailed lengths, a fifth of them empty, one of 24,000 pairs (many
+    pieces of K7's schedule), and padding pairs in the trash segment."""
+    rng = np.random.default_rng(seed)
+    k_pad = 700
+    lens = np.minimum(rng.zipf(1.7, k_pad), 600)
+    lens[rng.random(k_pad) < 0.2] = 0
+    lens[350] = 24000
+    lens[-1] = 0
+    seg = np.repeat(np.arange(k_pad), lens)
+    n_real = seg.size
+    seg = np.concatenate([seg, np.full(100, k_pad - 1)])
+    W = rng.normal(0.0, 1.0, (54, seg.size))
+    A = rng.normal(0.0, 1.0, (3, 3, seg.size))
+    V = np.einsum("abn,cbn->acn", A, A) + 0.1 * np.eye(3)[:, :, None]
+    return seg, np.concatenate([W, V.reshape(9, -1)]), k_pad, n_real
+
+
+@pytest.mark.parametrize("lam", [1e-4, 1.0])
+def test_pair_kernel_splits_a_long_segment(dev, lam):
+    """A segment of 24,000 pairs among hundreds of short and empty ones: the
+    kernel works it in pieces and adds them in order, against the plain
+    version in f64; the same bits twice; empty and trash segments exactly 0;
+    one launch a call; no call without the schedule."""
+    seg_np, packed_np, k_pad, n_real = _long_segment_pairs()
+    starts = np.searchsorted(seg_np[:n_real], np.arange(k_pad + 1), side="left")
+    sched = pair_schedule(starts, device=dev)
+    assert sched.pieces.shape[1] > 20 and sched.empty.shape[0] > 100
+    seg = torch.as_tensor(seg_np.astype(np.int32), device=dev)
+    packed = torch.as_tensor(packed_np, dtype=torch.float32, device=dev)
+    lam32 = torch.tensor(lam, device=dev)
+    before = _lib.launches["pairblocks"]
+    out = fused_pair_blocks(packed, seg, lam32, k_pad, sched, **BAND_KW)
+    assert torch.equal(out, fused_pair_blocks(packed, seg, lam32, k_pad, sched, **BAND_KW))
+    torch.cuda.synchronize()
+    assert _lib.launches["pairblocks"] == before + 2
+    ref = fused_pair_blocks_plain(packed.double(), seg, lam32.double(), k_pad, **BAND_KW)
+    plain = fused_pair_blocks_plain(packed, seg, lam32, k_pad, **BAND_KW)
+    ref[:, -1] = 0
+    plain[:, -1] = 0
+    assert torch.all(out[:, torch.as_tensor(np.diff(starts) == 0, device=dev)] == 0)
+    assert torch.all(out[:, -1] == 0)
+    _held_to_plain_f32(out, plain, ref, "pairblocks")
+    with pytest.raises(ValueError):
+        fused_pair_blocks(packed, seg, lam32, k_pad, None, **BAND_KW)
+    assert _lib.launches["pairblocks"] == before + 2
 
 
 def test_slot_kernel_drops_an_offset_without_a_band_slot(dev):
@@ -751,7 +801,7 @@ def test_sparse_wrappers_refuse_what_the_kernels_do_not_take(dev):
     before = dict(_lib.launches)
     with pytest.raises(TypeError):          # f64 on the card: no quiet plain version
         fused_pair_blocks(pd.packed.double(), plan.pair_seg, lam.double(), plan.k_pad,
-                          plan.seg_start, **BAND_KW)
+                          plan.pair_sched, **BAND_KW)
     with pytest.raises(TypeError):
         fused_track_blocks(pd.trk_W.double(), pd.trk_V.double(), lam.double(), plan.track,
                            **BAND_KW)
@@ -761,11 +811,16 @@ def test_sparse_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         pcg_banded(blk.double(), None, None, b.double(), plan, max_iters=5, tol=1e-4,
                    U_t=pd.U_t.double(), lam=lam.double())
-    with pytest.raises(ValueError):         # CSR starts left on the CPU
-        fused_pair_blocks(pd.packed, plan.pair_seg, lam, plan.k_pad, plan.seg_start.cpu(),
-                          **BAND_KW)
+    with pytest.raises(ValueError):         # the schedule left on the CPU
+        fused_pair_blocks(pd.packed, plan.pair_seg, lam, plan.k_pad,
+                          pair_schedule(plan.seg_start.cpu().numpy(), device="cpu"), **BAND_KW)
+    with pytest.raises(ValueError):         # CSR starts in place of the schedule
+        fused_pair_blocks(pd.packed, plan.pair_seg, lam, plan.k_pad, plan.seg_start, **BAND_KW)
     with pytest.raises(ValueError):         # no kernel plan at all
         fused_pair_blocks(pd.packed, plan.pair_seg, lam, plan.k_pad, None, **BAND_KW)
+    with pytest.raises(ValueError):         # a schedule of another plan's segments
+        fused_pair_blocks(pd.packed, plan.pair_seg, lam, plan.k_pad + 1, plan.pair_sched,
+                          **BAND_KW)
     with pytest.raises(ValueError):         # a non-contiguous payload
         fused_track_blocks(pd.trk_W.permute(0, 2, 1).contiguous().permute(0, 2, 1), pd.trk_V,
                            lam, plan.track, **BAND_KW)

@@ -25,6 +25,7 @@ from tpu_ba.solver.plans import pt_segsum_t as ref_pt_segsum_t
 from tpu_ba_torch.core import problem_from_numpy
 from tpu_ba_torch.kernels import _lib
 from tpu_ba_torch.kernels.linearize import fused_cost, fused_linearize_assemble
+from tpu_ba_torch.kernels.pairblocks import fused_pair_blocks, pair_schedule
 from tpu_ba_torch.kernels.segsum import (BLOCK_LOG2, group_log2, sorted_segment_sum_t,
                                          sorted_segment_sum_t_plain)
 from tpu_ba_torch.solver.plans import build_plans, pt_segsum_t
@@ -308,4 +309,11 @@ def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch, tmp_path):
         fused_linearize_assemble(*args, z((C + 1,), torch.int32), robust_kind=9)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         fused_cost(*args)
+    pair_args = (z((63, O)), z((O,), torch.int32), z(()), 3)
+    pair_kw = dict(diag_floor=1e-6, diag_ceil=1e32)
+    with pytest.raises(ValueError, match="pair schedule"):
+        fused_pair_blocks(*pair_args, None, **pair_kw)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fused_pair_blocks(*pair_args, pair_schedule(np.array([0, 3, 3, 8]), device=meta),
+                          **pair_kw)
     assert _lib.launches == before

@@ -40,9 +40,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # packed, seg_start, lam, out, n_pairs, k_pad, group_log2, diag_floor,
-    # diag_ceil, stream
-    "tba_pair_blocks": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    # packed, lam, items, n_items, pieces, n_pieces, empty, n_empty, fold_seg,
+    # fold_start, n_split, partial, out, n_pairs, k_pad, group_log2,
+    # diag_floor, diag_ceil, stream
+    "tba_pair_blocks": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _F, _F,
+                        _P],
     # Wt, Vt, mask, key_start, lam, out, dmax, pt_pad, c_pad, ld_out, diag_floor,
     # diag_ceil, stream
     "tba_track_blocks": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],

@@ -41,8 +41,9 @@ import numpy as np
 import torch
 
 from tpu_ba_torch.core import _round_up, device_of, to_host
-from tpu_ba_torch.kernels.pairblocks import (block_products_rows, damped_vinv_rows,
-                                             fused_pair_blocks, fused_pair_blocks_plain)
+from tpu_ba_torch.kernels.pairblocks import (PairSchedule, block_products_rows,
+                                             damped_vinv_rows, fused_pair_blocks,
+                                             fused_pair_blocks_plain, pair_schedule)
 from tpu_ba_torch.kernels.pcg_band import pcg_banded
 from tpu_ba_torch.kernels.segsum import sorted_segment_sum_t, sorted_segment_sum_t_plain
 from tpu_ba_torch.kernels.slotband import slot_band_blocks, slot_band_blocks_plain
@@ -86,8 +87,9 @@ class PairPlan:
     compact segment (ascending); ``seg_ci``/``seg_cj`` give each segment's
     camera pair (padding segments carry ci == C); ``diag_pos`` locates camera
     c's (c, c) block. ``seg_start`` (k_pad + 1 int32, the CSR starts of the
-    real pairs' ``pair_seg``) is what the pair kernel walks in place of the
-    reference's ``seg_plan`` (None ⇒ the plain versions run). With it come,
+    real pairs' ``pair_seg``; None ⇒ the plain versions run) and
+    ``pair_sched``, the pair kernel's schedule built from it, take the place
+    of the reference's ``seg_plan``. With them come,
     on a non-banded plan, ``ci_start`` / ``cj_start`` (C + 2 CSR starts of
     ``seg_ci`` and ``cj_keys``, keys 0 … C) for K1 in the compact matvec, in
     place of the reference's ``ci_plan`` / ``cj_plan``, and ``ci_longest`` /
@@ -116,6 +118,7 @@ class PairPlan:
     n_heavy_obs: int
     n_heavy_pts: int
     seg_start: torch.Tensor | None = None
+    pair_sched: PairSchedule | None = None
     symmetric: bool = False
     seg_perm_cj: torch.Tensor | None = None   # (k_pad,) permutation: cj-sorted
     cj_keys: torch.Tensor | None = None       # (k_pad,) seg_cj[perm]; C on padding
@@ -165,10 +168,11 @@ def pair_plan_from_numpy(arrays: dict, *, track=None, slot=None, with_kernel_pla
     C, k_pad = int(meta["n_cameras"]), int(meta["k_pad"])
     band_offsets = tuple(int(o) for o in meta["band_offsets"])
     opt = {k: arrays.get(k) for k in PAIR_OPTIONAL_ARRAYS}
-    seg_start = ci_start = cj_start = ci_longest = cj_longest = left = None
+    seg_start = pair_sched = ci_start = cj_start = ci_longest = cj_longest = left = None
     if with_kernel_plans:
         n_real = int((np.asarray(arrays["pair_key"]).astype(np.int64) < C * C).sum())
-        seg_start = t(np.searchsorted(seg[:n_real], np.arange(k_pad + 1), side="left"))
+        starts = np.searchsorted(seg[:n_real], np.arange(k_pad + 1), side="left")
+        seg_start, pair_sched = t(starts), pair_schedule(starts, device=device)
         seg_ci = np.asarray(arrays["seg_ci"]).astype(np.int64)
         seg_cj = np.asarray(arrays["seg_cj"]).astype(np.int64)
         k_band, K = int(meta["k_band"]), int(meta["n_segments"])
@@ -188,7 +192,7 @@ def pair_plan_from_numpy(arrays: dict, *, track=None, slot=None, with_kernel_pla
         **{k: t(arrays[k]) for k in PAIR_ARRAYS},
         n_pairs=int(meta["n_pairs"]), n_cameras=C, max_degree=int(meta["max_degree"]),
         n_segments=int(meta["n_segments"]), k_pad=k_pad, n_heavy_obs=int(meta["n_heavy_obs"]),
-        n_heavy_pts=int(meta["n_heavy_pts"]), seg_start=seg_start,
+        n_heavy_pts=int(meta["n_heavy_pts"]), seg_start=seg_start, pair_sched=pair_sched,
         symmetric=bool(meta["symmetric"]),
         seg_perm_cj=None if opt["seg_perm_cj"] is None else t(opt["seg_perm_cj"]),
         cj_keys=None if opt["cj_keys"] is None else t(opt["cj_keys"]),
@@ -214,8 +218,9 @@ def build_pair_plan(cam_idx, pt_idx, n_obs: int, n_cameras: int, n_points: int, 
     would cover most pairs. ``tracks``/``slots`` hand the consecutive and the
     short gapped tracks to their own layouts (``solver/tracks.py``,
     ``solver/slots.py``) instead of enumerating them. ``with_kernel_plans``
-    also builds what the CUDA kernels walk (CSR starts of the pairs, of the
-    compact matvec's keys, of a capped band's leftovers). The plan's tensors
+    also builds what the CUDA kernels walk (CSR starts of the pairs and the
+    pair kernel's schedule, CSR starts of the compact matvec's keys, of a
+    capped band's leftovers). The plan's tensors
     live on ``device`` (default: that of ``cam_idx``)."""
     device = device_of(cam_idx, device)
     cam_idx, pt_idx = to_host(cam_idx), to_host(pt_idx)
@@ -625,9 +630,9 @@ def _compact_blocks(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData,
     through the plain versions."""
     dc = B.U.shape[-1]
     kw = dict(dc=dc, diag_floor=diag_floor, diag_ceil=diag_ceil)
-    if pairs.seg_start is not None:
+    if pairs.pair_sched is not None:
         blk = fused_pair_blocks(pair_data.packed, pairs.pair_seg, lam, pairs.k_pad,
-                                pairs.seg_start, **kw)
+                                pairs.pair_sched, **kw)
     else:
         blk = fused_pair_blocks_plain(pair_data.packed, pairs.pair_seg, lam, pairs.k_pad, **kw)
     # only the trash column k_pad−1 receives padding pairs: zero it so reads
