@@ -11,7 +11,9 @@ Phases, one line each (the end-to-end phase a few):
                the median time of kernel and plain version (f32, CUDA events)
                and the least time the card could take (bytes over 3.35 TB/s or
                operations over 67 TFLOP/s, whichever is larger). K1–K3 on the
-               problem's initial parameters; K7, K5, K6, K4 and K8 on that
+               problem's initial parameters, over K2's and K3's piece
+               schedule (printed), K2 and K3 timed as replayed CUDA graphs
+               and repeated bit for bit; K7, K5, K6, K4 and K8 on that
                linearization's W, V, U and right-hand side and the port's own
                pair plan, whose shapes (and K7's schedule) are printed and
                checked; K7, K5 and K6 timed as replayed CUDA graphs. K8 (the PCG
@@ -42,11 +44,15 @@ Phases, one line each (the end-to-end phase a few):
                solve() in f32;
   7. huber   — the trafalgar-257 ring stand-in at its golden's config (Huber
                at scale 1, 60 iterations) through "schur_sparse_pallas":
-               final cost within 1% of data/goldens/trafalgar-257.json;
+               final cost within 1% of data/goldens/trafalgar-257.json, K2
+               timed at its shape before;
   8. venice  — venice-1778 with community covisibility (1,778 cameras,
                993,923 points, 5,001,946 observations) at its golden's
                config: the plan is not banded, K1 and K7 against their plain
-               versions at this problem's shapes (K7's schedule printed),
+               versions at this problem's shapes (K7's schedule printed), K2
+               at its shape (its schedule printed), checked on the cameras
+               with the most, the median and the fewest observations and
+               repeated bit for bit,
                then two solves through
                "schur_sparse_pallas": final cost within 1% of
                data/goldens/venice-1778-community.json, K7, K1, K2, K3
@@ -204,11 +210,38 @@ def device_ms(torch, fns, launches=20, reps=10):
     return median_ms(torch, graph.replay, reps=reps, warmup=2) / launches
 
 
+def input_copies(ts, launches=20):
+    """The tuple of tensors ``ts`` and clones of it, more than twice the L2's
+    size in all (one for each replayed launch at most)."""
+    n_bytes = sum(t.numel() * t.element_size() for t in ts)
+    n = min(launches, max(1, -(-2 * L2_BYTES // n_bytes) + 1))
+    return [ts] + [tuple(t.clone() for t in ts) for _ in range(n - 1)]
+
+
 def value_copies(vals, launches=20):
-    """``vals`` and clones of it, more than twice the L2's size in all (one
-    for each replayed launch at most)."""
-    n = min(launches, max(1, -(-2 * L2_BYTES // (vals.numel() * vals.element_size())) + 1))
-    return [vals] + [vals.clone() for _ in range(n - 1)]
+    """``vals`` and clones of it, more than twice the L2's size in all."""
+    return [c[0] for c in input_copies((vals,), launches)]
+
+
+def describe_lin_schedule(s):
+    """K2's and K3's schedule (``LinSchedule``) in words."""
+    n_pieces = s.piece_start.diff()
+    return (f"{s.threads} threads a block, pieces of at most {s.piece_obs} observations: "
+            f"{s.pieces.shape[1]} pieces, {int((n_pieces > 1).sum())} cameras split, "
+            f"{s.empty.shape[0]} empty cameras; longest camera {s.longest} observations in "
+            f"{int(n_pieces.max())} pieces")
+
+
+def lin_bounds(C, P, O, s):
+    """(K2's, K3's) (bytes, operations): cameras, points, observations, point
+    index, mask and the schedule read once; K2 writes U, gc and 40 rows an
+    observation in about 600 operations each (projection, Jacobians,
+    W/VtV/gp products, U/gc sums), K3 a scalar in about 100. K3 reads no
+    camera index: its pieces name the camera."""
+    n_pieces = s.pieces.shape[1]
+    reads = 4 * (9 * C + 3 * P + 2 * O + O) + O + 4 * (3 * n_pieces + C + 1 + s.empty.shape[0])
+    return ((reads + 4 * (81 * C + 9 * C + 40 * O), 600 * O),
+            (4 * (9 * C + 3 * P + 2 * O + O) + O + 4 * 3 * n_pieces + 4, 100 * O))
 
 
 def describe_schedule(s):
@@ -452,6 +485,8 @@ def main() -> int:
     out = sorted_segment_sum_t(torch.ones((2, 6), device=dev), keys, 6, starts)
     assert out.cpu().tolist() == [[2, 0, 3, 0, 0, 1]] * 2, out
 
+    lsched = plans.lin_sched
+    say("kernel", f"K2/K3 schedule: {describe_lin_schedule(lsched)}")
     for rname, rk in ROBUST_KINDS.items():
         kw = dict(robust_kind=rk, robust_scale=ROBUST_SCALE)
         ref = fused_linearize_assemble_plain(*args64, **kw)
@@ -463,14 +498,22 @@ def main() -> int:
                 e[k] = err(out[3][rows], ref[3][rows])
             return e
 
-        errs = k2_errs(fused_linearize_assemble(*args32, plans.cam_start, **kw))
+        out = fused_linearize_assemble(*args32, plans.cam_start, sched=lsched, **kw)
+        again = fused_linearize_assemble(*args32, plans.cam_start, sched=lsched, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f"K2 {rname}: two calls differ")
+        errs = k2_errs(out)
+        del out, again
         plain_errs = k2_errs(fused_linearize_assemble_plain(*args32, **kw))
         worst = max(errs, key=lambda k: errs[k][1])
         k2_tol = TOL_LINEARIZE_NO_LOSS if rk == 0 else TOL["linearize"]
         for k, (a, r) in errs.items():
             record("linearize", a, r, f"{rname} {k}", k2_tol)
         cref = fused_cost_plain(*args64, **kw).item()
-        ca = abs(fused_cost(*args32, **kw).item() - cref)
+        cost = fused_cost(*args32, sched=lsched, **kw)
+        if not torch.equal(cost, fused_cost(*args32, sched=lsched, **kw)):
+            raise AssertionError(f"K3 {rname}: two calls differ")
+        ca = abs(cost.item() - cref)
         pa = abs(fused_cost_plain(*args32, **kw).item() - cref)
         record("cost", ca, ca / abs(cref), rname)
         line = (f"K2 linearize {rname}: worst rel err {errs[worst][1]:.2e} ({worst}; plain f32 "
@@ -478,26 +521,32 @@ def main() -> int:
                 f"K3 cost {rname}: rel err {ca / abs(cref):.2e} (plain f32 {pa / abs(cref):.2e};"
                 f" tol {TOL['cost']:.0e})")
         if rname == "none":
-            results["linearize"]["ms"] = median_ms(
-                torch, lambda: fused_linearize_assemble(*args32, plans.cam_start, **kw))
+            # device time as in a solve: replayed CUDA graphs over copies of
+            # points and observations rotating through twice the L2 (ms),
+            # and on one copy (ms_l2)
+            sets = input_copies((problem.points, problem.obs_2d))
+            rest = (problem.cam_idx, problem.pt_idx, problem.mask)
+            for name, fn in (
+                    ("linearize", lambda pts, obs: fused_linearize_assemble(
+                        problem.cameras, pts, obs, *rest, plans.cam_start, sched=lsched, **kw)),
+                    ("cost", lambda pts, obs: fused_cost(problem.cameras, pts, obs, *rest,
+                                                         sched=lsched, **kw))):
+                results[name]["ms"] = device_ms(torch, [lambda s=s, fn=fn: fn(*s) for s in sets])
+                results[name]["ms_l2"] = device_ms(torch, lambda fn=fn: fn(*sets[0]))
+            del sets
             results["linearize"]["plain_ms"] = median_ms(
                 torch, lambda: fused_linearize_assemble_plain(*args32, **kw), reps=5)
-            results["cost"]["ms"] = median_ms(torch, lambda: fused_cost(*args32, **kw))
             results["cost"]["plain_ms"] = median_ms(
                 torch, lambda: fused_cost_plain(*args32, **kw), reps=5)
-            # K2 reads cameras, points, observations, point index, mask and
-            # camera starts once and writes U, gc and 40 rows an observation;
-            # about 600 operations an observation (projection, Jacobians,
-            # W/VtV/gp products, U/gc sums). K3 reads both index maps and
-            # writes a scalar; about 100 operations an observation.
-            set_bound("linearize", 4 * (9 * C + 3 * P + 2 * O + O + C + 1) + O
-                      + 4 * (81 * C + 9 * C + 40 * O), 600 * O)
-            set_bound("cost", 4 * (9 * C + 3 * P + 2 * O + 2 * O) + O + 4, 100 * O)
-            line += (f"; K2 {results['linearize']['ms']:.4f} ms, plain "
-                     f"{results['linearize']['plain_ms']:.4f} ms, bound "
-                     f"{results['linearize']['bound_ms']:.4f} ms; K3 {results['cost']['ms']:.4f}"
-                     f" ms, plain {results['cost']['plain_ms']:.4f} ms, bound "
-                     f"{results['cost']['bound_ms']:.4f} ms")
+            (b2, o2), (b3, o3) = lin_bounds(C, P, O, lsched)
+            set_bound("linearize", b2, o2)
+            set_bound("cost", b3, o3)
+            r2, r3 = results["linearize"], results["cost"]
+            line += (f"; K2 {r2['ms']:.4f} ms ({r2['ms_l2']:.4f} from L2), plain "
+                     f"{r2['plain_ms']:.4f} ms, bound {r2['bound_ms']:.4f} ms; K3 "
+                     f"{r3['ms']:.4f} ms ({r3['ms_l2']:.4f} from L2), plain "
+                     f"{r3['plain_ms']:.4f} ms, bound {r3['bound_ms']:.4f} ms (what it reads: "
+                     f"no camera index)")
         say("kernel", line)
     del ref, args64
 
@@ -536,7 +585,7 @@ def main() -> int:
         """The BlockSystem of ``prob`` at its initial parameters, through K2 and K1."""
         U, gc, W, pt_vals = fused_linearize_assemble(
             prob.cameras, prob.points, prob.obs_2d, prob.cam_idx, prob.pt_idx, prob.mask,
-            pl.cam_start)
+            pl.cam_start, sched=pl.lin_sched)
         ptp = pt_segsum_t(pl, pt_vals[:12], prob.pt_idx, prob.n_points)
         return BlockSystem(U=U, V=ptp[:9], W=W, gc=gc, gp=ptp[9:12],
                            cost=0.5 * torch.sum(pt_vals[12]), cam_idx=prob.cam_idx,
@@ -1189,7 +1238,17 @@ def main() -> int:
     tcfg = LMConfig(linear_solver="schur_sparse_pallas", max_iters=tgold["max_iters"],
                     cg_max_iters=tgold["cg_max_iters"], cg_tol=tgold["cg_tol"], init_lambda=1e-4,
                     robust_kind=ROBUST_KINDS[tgold["robust"]], robust_scale=tgold["robust_scale"])
-    _, tplan = build_solver_plans(tp, tcfg)
+    tplans, tplan = build_solver_plans(tp, tcfg)
+    tsched = tplans.lin_sched
+    results["linearize"]["ms_trafalgar"] = device_ms(torch, [
+        lambda s=s: fused_linearize_assemble(tp.cameras, *s, tp.cam_idx, tp.pt_idx, tp.mask,
+                                             tplans.cam_start, sched=tsched)
+        for s in input_copies((tp.points, tp.obs_2d))])
+    results["linearize"]["bound_ms_trafalgar"], _ = bound(*lin_bounds(
+        tp.n_cameras, tp.n_points, tp.obs_2d.shape[0], tsched)[0])
+    say("huber", f"K2 at trafalgar-257's shape ({describe_lin_schedule(tsched)}): "
+                 f"{results['linearize']['ms_trafalgar']:.4f} ms (replayed CUDA graphs over "
+                 f"rotating copies), bound {results['linearize']['bound_ms_trafalgar']:.4f} ms")
     t_kernels = (("segsum", "linearize", "cost", "pcg_band", "pairblocks")
                  + (("trackband",) if tplan.track is not None else ())
                  + (("slotband",) if tplan.slot is not None else ()))
@@ -1217,6 +1276,7 @@ def main() -> int:
                   f"banded {vplan.banded}, {vplan.n_segments} segments (k_pad {vplan.k_pad}), "
                   f"{n_real} pairs padded to {vplan.n_pairs}, {vplan.n_heavy_pts} heavy points")
     say("venice", f"K7 schedule: {describe_schedule(vplan.pair_sched)}")
+    say("venice", f"K2/K3 schedule: {describe_lin_schedule(vplans.lin_sched)}")
     if (vplan.banded or vplan.track is not None or vplan.slot is not None
             or vplan.ci_start is None or vplan.cj_start is None):
         raise AssertionError("the community plan is banded or lacks the compact matvec's starts")
@@ -1273,6 +1333,41 @@ def main() -> int:
     say("venice", f"K7 pairblocks at this shape: {r7['ms_venice']:.4f} ms, plain "
                   f"{r7['plain_ms_venice']:.3f} ms, bound {r7['bound_ms_venice']:.4f} ms ({by7})")
     del VB, vpd
+    # K2 at this shape; held against f64 on the observations of the cameras
+    # with the most, the median and the fewest (their U, gc, W and pt_vals
+    # depend on those alone)
+    vsched = vplans.lin_sched
+    vargs = (vp.cameras, vp.points, vp.obs_2d, vp.cam_idx, vp.pt_idx, vp.mask)
+    out = fused_linearize_assemble(*vargs, vplans.cam_start, sched=vsched)
+    again = fused_linearize_assemble(*vargs, vplans.cam_start, sched=vsched)
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError("K2 at venice-1778-community: two calls differ")
+    del again
+    lens = vplans.cam_start.diff()
+    order = torch.argsort(lens, stable=True)
+    cams = [int(order[-1]), int(order[Cv // 2]), int(order[int((lens == 0).sum())])]
+    keep = torch.isin(vp.cam_idx, torch.tensor(cams, dtype=torch.int32, device=dev))
+    sub = (vp.obs_2d[keep], vp.cam_idx[keep], vp.pt_idx[keep], vp.mask[keep])
+    ref = fused_linearize_assemble_plain(vp.cameras.double(), vp.points.double(),
+                                         sub[0].double(), *sub[1:])
+    plain = fused_linearize_assemble_plain(vp.cameras, vp.points, *sub)
+    ci = torch.tensor(cams, device=dev)
+    for what, got, want, pl32 in (
+            ("U", out[0][ci], ref[0][ci], plain[0][ci]), ("gc", out[1][ci], ref[1][ci], plain[1][ci]),
+            ("W", out[2][:, keep], ref[2], plain[2]), ("pt_vals", out[3][:, keep], ref[3], plain[3])):
+        a, r = err(got, want)
+        _, pr = err(pl32, want)
+        record("linearize", a, r, f"venice-1778-community {what}", TOL_LINEARIZE_NO_LOSS)
+        say("venice", f"K2 {what} on cameras {cams} ({[int(lens[c]) for c in cams]} "
+                      f"observations): rel err {r:.2e} (plain f32 {pr:.2e}; tol "
+                      f"{TOL_LINEARIZE_NO_LOSS:.0e})")
+    del out, ref, plain, sub, keep
+    r2 = results["linearize"]
+    r2["ms_venice"] = median_ms(torch, lambda: fused_linearize_assemble(
+        *vargs, vplans.cam_start, sched=vsched), reps=10)
+    r2["bound_ms_venice"], _ = bound(*lin_bounds(Cv, Pv, Ov, vsched)[0])
+    say("venice", f"K2 linearize at this shape: {r2['ms_venice']:.4f} ms (eager events), bound "
+                  f"{r2['bound_ms_venice']:.4f} ms")
     v_launches, v_fig = run_path(vp, "venice-1778-community schur_sparse_pallas", vcfg,
                                  VENICE_KERNELS, vgold, False)
     del vp
@@ -1287,7 +1382,10 @@ def main() -> int:
     # by camera), each call reading its values from device memory; by_shape
     # holds every call timed, with the same from L2. The *_venice figures of K1
     # (both keyed sums of one compact matvec) and K7 are at
-    # venice-1778-community's shapes. K4's and K8's ms are the resident form's
+    # venice-1778-community's shapes, K2's *_trafalgar and *_venice at
+    # trafalgar-257's (replayed CUDA graphs) and venice-1778-community's
+    # (eager events); K2's and K3's ms and ms_l2 are replayed CUDA graphs,
+    # read from device memory and from L2. K4's and K8's ms are the resident form's
     # (the one the solves launch), ms_streaming the streaming form's on the
     # same system; floor_ms_per_cg_iteration is the measured time of an
     # iteration's device-wide exchanges alone.

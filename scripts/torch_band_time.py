@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time the band-build kernels of ladybug-1723 as ``_compact_blocks`` calls
-them, for one tree of the port, on one CUDA card.
+them, and K2 and K3 as the LM loop calls them, for one tree of the port, on
+one CUDA card.
 
     python3 scripts/torch_band_time.py [--root DIR] [--lam 1e-4] [--venice]
 
@@ -30,6 +31,14 @@ schedule (K7 before it was split by pairs).
 working directory on the first run, ~50 s, and read from there after): the
 median of 10 calls between CUDA events, after the same check against f64.
 Its 4 GB of pair data are read from device memory on every call.
+
+K2 (linearize + assemble) and K3 (trial cost) are timed too, as the LM loop
+calls them on ladybug-1723 (no robust loss), on the same two clocks over
+copies of ``points`` and ``obs_2d``, after a check of every output against
+the plain version in f64; with ``--venice`` also at venice-1778-community's
+shape (eager events: K2 writes 800 MB a call). A tree whose K2 and K3 take no
+schedule (``AssemblyPlans.lin_sched``, K2 before it was cut into pieces) is
+called through its own signature, with ``cam_start`` alone.
 """
 
 import argparse
@@ -149,15 +158,76 @@ def worst_row(got, ref):
     return ((got.double() - ref).abs().amax(1) / scale).max().item()
 
 
+def lin_calls(cams, ci, pi, mask, plans, robust_kind=0, robust_scale=1.0):
+    """K2 and K3 as the tree's LM loop calls them, each a function of
+    (points, obs_2d): the tree's schedule (``plans.lin_sched``) where its
+    wrappers take one, else ``cam_start`` alone for K2 and nothing for K3."""
+    import inspect
+
+    from tpu_ba_torch.kernels.linearize import fused_cost, fused_linearize_assemble
+
+    sched = getattr(plans, "lin_sched", None)
+    kw = dict(robust_kind=robust_kind, robust_scale=robust_scale)
+    kw2 = dict(kw, sched=sched) if sched is not None else kw
+    takes = "sched" in inspect.signature(fused_cost).parameters
+    kw3 = dict(kw, sched=sched) if takes else kw
+
+    def k2(pts, obs):
+        return fused_linearize_assemble(cams, pts, obs, ci, pi, mask, plans.cam_start, **kw2)
+
+    def k3(pts, obs):
+        return fused_cost(cams, pts, obs, ci, pi, mask, **kw3)
+
+    return k2, k3
+
+
+def lin_errors(cams, pts, obs, ci, pi, mask, k2, k3, robust_kind=0, robust_scale=1.0):
+    """(K2's worst output array, K3's) max abs error over max |ref| against
+    the plain versions in f64 on the same inputs."""
+    from tpu_ba_torch.kernels.linearize import (fused_cost_plain,
+                                                fused_linearize_assemble_plain)
+
+    kw = dict(robust_kind=robust_kind, robust_scale=robust_scale)
+    args64 = (cams.double(), pts.double(), obs.double(), ci, pi, mask)
+    ref = fused_linearize_assemble_plain(*args64, **kw)
+    got = k2(pts, obs)
+    e2 = max((g.double() - r).abs().max().item() / max(r.abs().max().item(), 1e-300)
+             for g, r in zip(got, ref))
+    del ref, got
+    c = fused_cost_plain(*args64, **kw).item()
+    return e2, abs(k3(pts, obs).item() - c) / abs(c)
+
+
+def time_lin(torch, name, cams, pts, obs, ci, pi, mask, plans, graph=True):
+    """Check K2 and K3 against f64 and print their times: cold / l2 on the
+    graph clock, or eager events with ``graph=False``."""
+    k2, k3 = lin_calls(cams, ci, pi, mask, plans)
+    e2, e3 = lin_errors(cams, pts, obs, ci, pi, mask, k2, k3)
+    n_bytes = pts.numel() * 4 + obs.numel() * 4
+    for kname, fn, e in (("K2 linearize", k2, e2), ("K3 cost", k3, e3)):
+        if graph:
+            sets = [(pts, obs)] + [(pts.clone(), obs.clone())
+                                   for _ in range(n_copies(n_bytes) - 1)]
+            t = (f"{replay_ms(torch, [lambda s=s: fn(*s) for s in sets]):.4f} / "
+                 f"{replay_ms(torch, [lambda: fn(pts, obs)]):.4f}")
+            what = f"{len(sets):2d} copies of {n_bytes / 1e6:.1f} MB"
+            del sets
+        else:
+            t = f"{event_ms(torch, lambda: fn(pts, obs)):.4f} (eager events, median of 10)"
+            what = f"{obs.shape[0]} observations"
+        print(f"{kname + ' ' + name:30s} {what} | {t} | worst output {e:.2e} from f64",
+              flush=True)
+
+
 def system(p, jacobian_blocks_bal, assemble):
     r, Jc, Jp = jacobian_blocks_bal(p.cameras, p.points, p.obs_2d, p.cam_idx, p.pt_idx, p.mask)
     B = assemble(r, Jc, Jp, p.cam_idx, p.pt_idx, p.n_cameras, p.n_points, mask=p.mask)
     return B._replace(U=B.U.contiguous(), W=B.W.contiguous())
 
 
-def venice_k7(torch, lam, kw):
-    """K7 at venice-1778-community's shape: ms a call (eager events) and the
-    worst row against f64."""
+def venice_cases(torch, lam, kw):
+    """K7, then K2 and K3, at venice-1778-community's shape: ms a call (eager
+    events) and the worst row or output against f64."""
     from tpu_ba_torch.core import LMConfig
     from tpu_ba_torch.io.bal import make_bal_like_problem
     from tpu_ba_torch.jacobians.analytic import jacobian_blocks_bal
@@ -169,7 +239,7 @@ def venice_k7(torch, lam, kw):
     dev = lam.device
     p, _ = make_bal_like_problem("venice-1778", covis="community", dtype=torch.float32,
                                  device=dev)
-    _, plan = build_solver_plans(p, LMConfig(linear_solver="schur_sparse_pallas"))
+    plans, plan = build_solver_plans(p, LMConfig(linear_solver="schur_sparse_pallas"))
     pd = pairs_mod.precompute_pair_data(system(p, jacobian_blocks_bal, assemble), plan)
     call, data, _, _ = k7(torch, plan, pd, lam, None, kw)
     # f64 over the real pairs only, in chunks: the trash segment stays 0
@@ -186,6 +256,10 @@ def venice_k7(torch, lam, kw):
     n_bytes = data[0].numel() * data[0].element_size()
     print(f"{'K7 venice':16s} {n_real} pairs, {n_bytes / 1e9:.2f} GB of packed | {ms:.4f} ms "
           f"(eager events, median of 10) | worst row {worst:.2e} from f64", flush=True)
+    del data, pd, plan
+    torch.cuda.empty_cache()
+    time_lin(torch, "venice", p.cameras, p.points, p.obs_2d, p.cam_idx, p.pt_idx, p.mask,
+             plans, graph=False)
 
 
 def main() -> int:
@@ -193,7 +267,7 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--lam", type=float, default=1e-4)
     ap.add_argument("--venice", action="store_true",
-                    help="also time K7 at venice-1778-community's shape")
+                    help="also time K7, K2 and K3 at venice-1778-community's shape")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -207,6 +281,7 @@ def main() -> int:
     from tpu_ba_torch.jacobians.analytic import jacobian_blocks_bal
     from tpu_ba_torch.solver import pairs as pairs_mod
     from tpu_ba_torch.solver.normal import assemble
+    from tpu_ba_torch.solver.plans import build_plans
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
@@ -238,10 +313,12 @@ def main() -> int:
             print(f"{name + ' bare':16s} {len(sets):2d} copies of {n_bytes / 1e6:.1f} MB | "
                   f"{cold:.4f} / {l2:.4f} | the kernel alone, without the slice adds", flush=True)
         del sets, band
+    time_lin(torch, "ladybug-1723", p.cameras, p.points, p.obs_2d, p.cam_idx, p.pt_idx, p.mask,
+             build_plans(p.cam_idx, p.pt_idx, p.n_cameras, p.n_points))
     if args.venice:
         del pd, plan, B, p
         torch.cuda.empty_cache()
-        venice_k7(torch, lam, kw)
+        venice_cases(torch, lam, kw)
     return 0
 
 

@@ -35,7 +35,7 @@ from tpu_ba_torch.jacobians.analytic import jacobian_blocks_bal
 from tpu_ba_torch.kernels import _lib
 from tpu_ba_torch.kernels.linearize import (fused_cost, fused_cost_plain,
                                             fused_linearize_assemble,
-                                            fused_linearize_assemble_plain)
+                                            fused_linearize_assemble_plain, linearize_schedule)
 from tpu_ba_torch.kernels.pairblocks import (fused_pair_blocks, fused_pair_blocks_plain,
                                              pair_schedule)
 from tpu_ba_torch.kernels import pcg_band as pcg_band_mod
@@ -227,7 +227,8 @@ def test_linearize_and_cost_kernels_match_plain(dev, robust, case):
     args = (p.cameras, p.points, p.obs_2d, p.cam_idx, p.pt_idx, p.mask)
     args64 = (p.cameras.double(), p.points.double(), p.obs_2d.double()) + args[3:]
     plans = build_plans(p.cam_idx, p.pt_idx, C, p.n_points)
-    out = fused_linearize_assemble(*args, plans.cam_start, freeze_cols=freeze, **kw)
+    out = fused_linearize_assemble(*args, plans.cam_start, sched=plans.lin_sched,
+                                   freeze_cols=freeze, **kw)
     ref = fused_linearize_assemble_plain(*args64, freeze_cols=freeze, **kw)
     torch.cuda.synchronize()
     tol = 1e-4 if robust == 0 else 5e-3
@@ -241,10 +242,111 @@ def test_linearize_and_cost_kernels_match_plain(dev, robust, case):
     if freeze:
         assert torch.all(U[:, 7:9, :] == 0) and torch.all(U[:, :, 7:9] == 0)
         assert torch.all(gc[:, 7:9] == 0)
-    cost = fused_cost(*args, **kw)
+    cost = fused_cost(*args, sched=plans.lin_sched, **kw)
     assert cost.shape == () and cost.dtype == torch.float32
     assert abs(cost.item() - fused_cost_plain(*args64, **kw).item()) <= \
         1e-5 * abs(fused_cost_plain(*args64, **kw).item())
+
+
+def _lin_layout(dev, pad):
+    """Observations of a 6-camera synthetic problem dealt to 10 cameras,
+    each a copy of a base camera: cameras 1, 5 and 9 (the last) empty,
+    camera 2 holds base camera 0's observations 40 times over (~8,000, more
+    than ten pieces), camera 3 base camera 1's three times (two pieces);
+    each repeat with fresh pixel noise. With ``pad`` the rows are padded to
+    a multiple of 128 (mask 0, the last observed camera's and point's index)."""
+    base, _ = make_synthetic_problem(6, 300, obs_per_point=4, pixel_noise=0.5, seed=21,
+                                     device="cpu")
+    n = base.n_obs
+    obs, ci, pi = base.obs_2d.numpy()[:n], base.cam_idx.numpy()[:n], base.pt_idx.numpy()[:n]
+    src = (0, -1, 0, 1, 2, -1, 3, 4, 5, -1)                  # base camera of each; -1: empty
+    reps = {2: 40, 3: 3}
+    rng = np.random.default_rng(7)
+    parts = []
+    for k, b in enumerate(src):
+        if b >= 0:
+            sel = np.tile(np.flatnonzero(ci == b), reps.get(k, 1))
+            parts.append((obs[sel] + rng.normal(0.0, 0.5, (sel.size, 2)).astype(np.float32),
+                          np.full(sel.size, k), pi[sel]))
+    o, c, q = (np.concatenate(a) for a in zip(*parts))
+    return make_problem(base.cameras.numpy()[[max(b, 0) for b in src]], base.points.numpy(), o,
+                        c, q, pad_multiple=128 if pad else 1, device=dev)
+
+
+def _worst_row(out, ref):
+    """Worst row's max abs error over that row's max |ref| (a row of U or
+    gc: one entry over all cameras); a row whose reference is all zero must
+    be exactly zero."""
+    d = (out.double() - ref).abs().amax(1)
+    scale = ref.abs().amax(1)
+    rel = d / scale.clamp_min(1e-300)
+    rel[(scale == 0) & (d > 0)] = float("inf")
+    rel[(scale == 0) & (d == 0)] = 0.0
+    return rel.max().item()
+
+
+def _rows(t):
+    """An output of K2 as rows: U (C,9,9) → (81, C), gc (C,9) → (9, C); W and
+    pt_vals are rows already."""
+    return t.reshape(t.shape[0], -1).T if t.shape[-1] == 9 else t
+
+
+@pytest.mark.parametrize("robust,pad,freeze", [
+    (0, True, ()), (1, True, (7, 8)), (2, False, ()), (3, False, (0, 6)), (0, False, (3,)),
+])
+def test_linearize_and_cost_over_pieces(dev, robust, pad, freeze):
+    """K2 and K3 over a schedule with empty cameras, one camera of many
+    pieces and one of two: each output row against the plain version in
+    f64, within ten times the plain f32 version's worst row (1e-5 at
+    least); two calls give the same bits; one launch a call."""
+    p = _lin_layout(dev, pad)
+    C = p.n_cameras
+    plans = build_plans(p.cam_idx, p.pt_idx, C, p.n_points)
+    sched = plans.lin_sched
+    n_pieces = sched.piece_start.diff().cpu()
+    assert n_pieces.max() > 10 and n_pieces[3] == 2 and sched.empty.tolist() == [1, 5, 9]
+    assert bool((~p.mask).any()) == pad
+    kw = dict(robust_kind=robust, robust_scale=2.0)
+    args = (p.cameras, p.points, p.obs_2d, p.cam_idx, p.pt_idx, p.mask)
+    args64 = (p.cameras.double(), p.points.double(), p.obs_2d.double()) + args[3:]
+    before = dict(_lib.launches)
+    out = fused_linearize_assemble(*args, plans.cam_start, sched=sched, freeze_cols=freeze, **kw)
+    again = fused_linearize_assemble(*args, plans.cam_start, sched=sched, freeze_cols=freeze,
+                                     **kw)
+    cost = fused_cost(*args, sched=sched, **kw)
+    cost_again = fused_cost(*args, sched=sched, **kw)
+    torch.cuda.synchronize()
+    assert _lib.launches["linearize"] == before["linearize"] + 2
+    assert _lib.launches["cost"] == before["cost"] + 2
+    assert all(torch.equal(a, b) for a, b in zip(out, again)) and torch.equal(cost, cost_again)
+    ref = fused_linearize_assemble_plain(*args64, freeze_cols=freeze, **kw)
+    plain = fused_linearize_assemble_plain(*args, freeze_cols=freeze, **kw)
+    for name, o, r, q in zip(("U", "gc", "W", "pt_vals"), out, ref, plain):
+        worst, plain_worst = _worst_row(_rows(o), _rows(r)), _worst_row(_rows(q), _rows(r))
+        assert worst <= max(1e-5, 10 * plain_worst), (name, worst, plain_worst)
+    U, gc, W, pt_vals = out
+    assert torch.all(U[[1, 5, 9]] == 0) and torch.all(gc[[1, 5, 9]] == 0)
+    assert torch.all(W[:, ~p.mask] == 0) and torch.all(pt_vals[:, ~p.mask] == 0)
+    for col in freeze:
+        assert torch.all(U[:, col, :] == 0) and torch.all(U[:, :, col] == 0)
+        assert torch.all(gc[:, col] == 0)
+    c64 = fused_cost_plain(*args64, **kw).item()
+    c32 = fused_cost_plain(*args, **kw).item()
+    assert abs(cost.item() - c64) <= max(1e-6, 10 * abs(c32 - c64) / abs(c64)) * abs(c64)
+
+
+def test_linearize_and_cost_refuse_a_missing_or_foreign_schedule(dev):
+    p = _lin_layout(dev, True)
+    plans = build_plans(p.cam_idx, p.pt_idx, p.n_cameras, p.n_points)
+    args = (p.cameras, p.points, p.obs_2d, p.cam_idx, p.pt_idx, p.mask)
+    other = linearize_schedule(plans.cam_start[:-1], device=dev)     # one camera fewer
+    before = dict(_lib.launches)
+    for sched in (None, other):
+        with pytest.raises(ValueError, match="linearize schedule"):
+            fused_linearize_assemble(*args, plans.cam_start, sched=sched)
+        with pytest.raises(ValueError, match="linearize schedule"):
+            fused_cost(*args, sched=sched)
+    assert _lib.launches == before
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -253,9 +355,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     args = (p.cameras, p.points, p.obs_2d, p.cam_idx, p.pt_idx, p.mask)
     before = dict(_lib.launches)
     with pytest.raises(TypeError):          # f64 on the card: no quiet plain version
-        fused_cost(p.cameras.double(), *args[1:])
-    with pytest.raises(ValueError):         # an index map left on the CPU
-        fused_linearize_assemble(*args, plans.cam_start.cpu())
+        fused_cost(p.cameras.double(), *args[1:], sched=plans.lin_sched)
+    with pytest.raises(ValueError):         # a schedule left on the CPU
+        fused_linearize_assemble(*args, plans.cam_start,
+                                 sched=linearize_schedule(plans.cam_start))
     with pytest.raises(ValueError):         # a non-contiguous payload
         sorted_segment_sum_t(torch.zeros((p.obs_2d.shape[0], 3), device=dev).T,
                              p.cam_idx, C, plans.cam_start)

@@ -24,7 +24,8 @@ from tpu_ba.solver.plans import build_plans as ref_build_plans
 from tpu_ba.solver.plans import pt_segsum_t as ref_pt_segsum_t
 from tpu_ba_torch.core import problem_from_numpy
 from tpu_ba_torch.kernels import _lib
-from tpu_ba_torch.kernels.linearize import fused_cost, fused_linearize_assemble
+from tpu_ba_torch.kernels.linearize import (fused_cost, fused_linearize_assemble,
+                                            linearize_schedule)
 from tpu_ba_torch.kernels.pairblocks import fused_pair_blocks, pair_schedule
 from tpu_ba_torch.kernels.segsum import (BLOCK_LOG2, group_log2, sorted_segment_sum_t,
                                          sorted_segment_sum_t_plain)
@@ -303,12 +304,13 @@ def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch, tmp_path):
     with pytest.raises(TypeError):
         sorted_segment_sum_t(z((3, O), torch.float64), z((O,), torch.int32), P,
                              z((P + 1,), torch.int32))
+    lsched = linearize_schedule(np.array([0, 3, 3, O]), device=meta)
     with pytest.raises(RuntimeError, match="nvcc failed"):
-        fused_linearize_assemble(*args, z((C + 1,), torch.int32))
+        fused_linearize_assemble(*args, z((C + 1,), torch.int32), sched=lsched)
     with pytest.raises(ValueError, match="robust kind"):
-        fused_linearize_assemble(*args, z((C + 1,), torch.int32), robust_kind=9)
+        fused_linearize_assemble(*args, z((C + 1,), torch.int32), sched=lsched, robust_kind=9)
     with pytest.raises(RuntimeError, match="nvcc failed"):
-        fused_cost(*args)
+        fused_cost(*args, sched=lsched)
     pair_args = (z((63, O)), z((O,), torch.int32), z(()), 3)
     pair_kw = dict(diag_floor=1e-6, diag_ceil=1e32)
     with pytest.raises(ValueError, match="pair schedule"):
@@ -317,3 +319,30 @@ def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch, tmp_path):
         fused_pair_blocks(*pair_args, pair_schedule(np.array([0, 3, 3, 8]), device=meta),
                           **pair_kw)
     assert _lib.launches == before
+
+
+def test_non_cpu_linearize_and_cost_need_their_schedule(monkeypatch, tmp_path):
+    """K2 and K3 off the CPU raise ValueError without the plan's schedule
+    (``AssemblyPlans.lin_sched``) or with one built for another problem,
+    before anything is built or counted."""
+    monkeypatch.setattr(_lib, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_lib, "_nvcc", lambda: "false")
+    meta = torch.device("meta")
+    C, P, O = 3, 5, 8
+
+    def z(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=meta)
+
+    args = (z((C, 9)), z((P, 3)), z((O, 2)), z((O,), torch.int32), z((O,), torch.int32),
+            z((O,), torch.bool))
+    before = dict(_lib.launches)
+    for sched in (None, linearize_schedule(np.array([0, 3, O]), device=meta),
+                  linearize_schedule(np.array([0, 3, 3, O - 1]), device=meta)):
+        with pytest.raises(ValueError, match="linearize schedule"):
+            fused_linearize_assemble(*args, z((C + 1,), torch.int32), sched=sched)
+        with pytest.raises(ValueError, match="linearize schedule"):
+            fused_cost(*args, sched=sched)
+    with pytest.raises(ValueError, match="linearize schedule"):
+        fused_linearize_assemble(*args, z((C + 1,), torch.int32))
+    assert _lib.launches == before
+    assert not list(tmp_path.iterdir())

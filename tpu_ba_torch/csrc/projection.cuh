@@ -1,11 +1,14 @@
 // Shared per-observation BAL projection and robust loss, for the linearize
 // kernel (K2) and the trial-cost kernel (K3) in linearize.cu.
 //
-// Both kernels call the SAME project_bal_core, so the projection model
-// (Rodrigues with its small-angle Taylor branch, the z-guard, the radial
-// distortion) cannot diverge between the cost and the linearization. This is
-// the rule of tpu_ba/kernels/linearize.py:_projection_core, whose arithmetic
-// this file follows line for line, in f32.
+// Both kernels call the SAME camera_part and project_point, so the
+// projection model (Rodrigues with its small-angle Taylor branch, the
+// z-guard, the radial distortion) cannot diverge between the cost and the
+// linearization. This is the rule of
+// tpu_ba/kernels/linearize.py:_projection_core, whose arithmetic this file
+// follows line for line, in f32: the projection is split in two, what
+// depends on the camera alone (formed once per camera) and what depends on
+// the observation.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,50 +22,73 @@ constexpr float kZGuard = 1e-12f;
 
 enum RobustKind { kRobustNone = 0, kRobustHuber = 1, kRobustCauchy = 2, kRobustArctan = 3 };
 
-struct Projection {
-  float aa[3];
-  float K[3][3];  // skew(aa)
+// What the projection needs of one camera, formed once per camera (a block
+// of K2 or K3 works the observations of one camera): R, t and the
+// intrinsics, and for K2's dP/daa the 3×3 factor
+//   core = (aa aaᵀ + (Rᵀ − I)[aa]×)/θ²
+// (Gallego–Yezzi; unused, and zero, below the small-angle threshold, where
+// dP/daa = −[X]×).
+struct CameraPart {
   float R[3][3];
-  float t2;       // θ²
-  bool small;     // θ² < kSmallTheta2
+  float core[3][3];
+  float t[3];
+  float f, k1, k2;
+  int small;  // θ² < kSmallTheta2
+};
+
+// What the projection computes per observation.
+struct Projection {
   float inv_z, p0, p1, s, d;
   float r0, r1;   // masked residual (u − uv)·mask
 };
 
-// cam: [aa(3), t(3), f, k1, k2]; X: point; (u_obs, v_obs): measurement;
-// mk: 1 for a real observation, 0 for a padding row.
-__device__ __forceinline__ void project_bal_core(const float cam[9], const float X[3],
-                                                 float u_obs, float v_obs, float mk,
-                                                 Projection& o) {
+// cam: [aa(3), t(3), f, k1, k2]
+__device__ __forceinline__ void camera_part(const float* cam, CameraPart& c) {
   const float a0 = cam[0], a1 = cam[1], a2 = cam[2];
-  o.aa[0] = a0;
-  o.aa[1] = a1;
-  o.aa[2] = a2;
+  const float aa[3] = {a0, a1, a2};
   const float t2 = a0 * a0 + a1 * a1 + a2 * a2;
   const bool small = t2 < kSmallTheta2;
   const float th = sqrtf(small ? 1.0f : t2);
   // R = I + A·K + B·(aa aaᵀ − θ² I)
   const float A = small ? 1.0f - t2 / 6.0f : sinf(th) / th;
   const float B = small ? 0.5f - t2 / 24.0f : (1.0f - cosf(th)) / t2;
-  o.K[0][0] = 0.0f; o.K[0][1] = -a2;  o.K[0][2] = a1;
-  o.K[1][0] = a2;   o.K[1][1] = 0.0f; o.K[1][2] = -a0;
-  o.K[2][0] = -a1;  o.K[2][1] = a0;   o.K[2][2] = 0.0f;
+  const float K[3][3] = {{0.0f, -a2, a1}, {a2, 0.0f, -a0}, {-a1, a0, 0.0f}};
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       const float delta = (i == j) ? 1.0f : 0.0f;
-      o.R[i][j] = delta + A * o.K[i][j] + B * (o.aa[i] * o.aa[j] - ((i == j) ? t2 : 0.0f));
+      c.R[i][j] = delta + A * K[i][j] + B * (aa[i] * aa[j] - ((i == j) ? t2 : 0.0f));
     }
   }
-  o.t2 = t2;
-  o.small = small;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      float acc = aa[i] * aa[j];
+#pragma unroll
+      for (int l = 0; l < 3; ++l) acc += (c.R[l][i] - (l == i ? 1.0f : 0.0f)) * K[l][j];
+      c.core[i][j] = small ? 0.0f : acc / t2;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) c.t[i] = cam[3 + i];
+  c.f = cam[6];
+  c.k1 = cam[7];
+  c.k2 = cam[8];
+  c.small = small;
+}
 
-  // P = R X + t, perspective division down −z, radial distortion
+// The point's part: P = R X + t, perspective division down −z, radial
+// distortion, the masked residual. X: point; (u_obs, v_obs): measurement;
+// mk: 1 for a real observation, 0 for a padding row.
+__device__ __forceinline__ void project_point(const CameraPart& c, const float X[3],
+                                              float u_obs, float v_obs, float mk,
+                                              Projection& o) {
   float P[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    P[i] = o.R[i][0] * X[0] + o.R[i][1] * X[1] + o.R[i][2] * X[2] + cam[3 + i];
+    P[i] = c.R[i][0] * X[0] + c.R[i][1] * X[1] + c.R[i][2] * X[2] + c.t[i];
   }
   const float z = P[2];
   const float z_safe = fabsf(z) < kZGuard ? kZGuard : z;
@@ -70,10 +96,9 @@ __device__ __forceinline__ void project_bal_core(const float cam[9], const float
   o.p0 = -P[0] * o.inv_z;
   o.p1 = -P[1] * o.inv_z;
   o.s = o.p0 * o.p0 + o.p1 * o.p1;
-  const float f = cam[6], k1 = cam[7], k2 = cam[8];
-  o.d = 1.0f + o.s * (k1 + o.s * k2);
-  o.r0 = (f * o.d * o.p0 - u_obs) * mk;
-  o.r1 = (f * o.d * o.p1 - v_obs) * mk;
+  o.d = 1.0f + o.s * (c.k1 + o.s * c.k2);
+  o.r0 = (c.f * o.d * o.p0 - u_obs) * mk;
+  o.r1 = (c.f * o.d * o.p1 - v_obs) * mk;
 }
 
 // arctan(x) for x ≥ 0: the same reduction and minimax polynomial as

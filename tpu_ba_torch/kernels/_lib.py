@@ -65,13 +65,14 @@ _SIGNATURES = {
     "tba_pcg_barrier_floor": [_I, _I, _I, _P, _P, _P],
     # values, perm, seg_start, out, n_rows, n_obs, n_out, group_log2, stream
     "tba_segsum_t": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # cams, pts, obs, pt_idx, mask, cam_start, n_cameras, n_obs, robust_kind,
-    # robust_scale, freeze_mask, U, gc, obs_out, stream
-    "tba_linearize": [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
-                      ctypes.c_uint, _P, _P, _P, _P],
-    # cams, pts, obs, cam_idx, pt_idx, mask, n_obs, robust_kind, robust_scale,
-    # partial, n_partial, out, stream
-    "tba_cost": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P, _I, _P, _P],
+    # cams, pts, obs, pt_idx, mask, pieces, n_pieces, piece_obs, piece_start,
+    # empty, n_empty, n_obs, threads, robust_kind, robust_scale, freeze_mask, U,
+    # gc, obs_out, scratch, ticket, stream
+    "tba_linearize": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _F,
+                      ctypes.c_uint, _P, _P, _P, _P, _P, _P],
+    # cams, pts, obs, pt_idx, mask, pieces, n_pieces, robust_kind, robust_scale,
+    # partial, ticket, out, stream
+    "tba_cost": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P],
 }
 
 

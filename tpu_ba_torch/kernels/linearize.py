@@ -5,7 +5,10 @@ replaces ``tpu_ba/kernels/linearize.py:fused_cost``. The CUDA kernels are in
 ``tpu_ba_torch/csrc/linearize.cu`` and share one ``__device__`` projection
 (``csrc/projection.cuh``); the plain PyTorch versions here share
 ``_projection_core`` in the same way, and follow the reference kernel's
-arithmetic step for step.
+arithmetic step for step. Both kernels walk a schedule built once per
+structure (``linearize_schedule``): each camera's run of observations cut
+into pieces, so no block works a long camera alone; K2 runs a block per
+piece, K3 a fixed grid of blocks over the pieces.
 
 Per-observation output rows (``(40, O)``, split into ``W`` and ``pt_vals``):
 W = Jcᵀ Jp (27, row 3m+n) | VtV = Jpᵀ Jp (9) | gp = Jpᵀ r (3) | ρ·mask (1).
@@ -13,6 +16,9 @@ W = Jcᵀ Jp (27, row 3m+n) | VtV = Jpᵀ Jp (9) | gp = Jpᵀ r (3) | ρ·mask (
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from tpu_ba_torch.kernels import _lib
@@ -21,8 +27,76 @@ from tpu_ba_torch.residuals.robust import robust_rho, robust_weight
 
 _SMALL_THETA2 = 1e-12
 OBS_ROWS = 40
-_COST_THREADS = 256   # csrc/linearize.cu:kCostThreads
-_COST_MAX_BLOCKS = 1024
+CAM_SUMS = 54          # a camera's sums: U's upper triangle (45), then gc (9)
+
+# K2's and K3's schedule (``linearize_schedule``): a block of LIN_THREADS
+# threads of K2 works a piece of at most PIECE_OBS consecutive observations of
+# one camera. Read off scripts/torch_lin_sweep.py (PERF.md §6).
+LIN_THREADS = 128
+PIECE_OBS = 512
+MAX_PIECE_OBS = 1024   # csrc/linearize.cu:kMaxPieceObs, what a block stages
+
+
+class LinSchedule(NamedTuple):
+    """K2's and K3's work list, built once per structure by
+    ``linearize_schedule``: every non-empty camera's run of observations cut
+    into pieces of at most ``piece_obs`` consecutive observations, in order;
+    each piece is one block of ``threads`` threads of K2. The index tensors
+    are int32 and a pure function of ``cam_start``. ``ticket``, ``partial``
+    and ``cost_partial`` are the kernels' working memory, allocated once
+    here: the block that finishes a camera (K2) or the call (K3) last, by an
+    integer counter, folds the partial sums in a fixed order and resets its
+    counter to 0."""
+
+    threads: int
+    piece_obs: int
+    n_obs: int                  # observations covered, cam_start[-1]
+    longest: int                # observations of the longest camera
+    pieces: torch.Tensor        # (3, n_pieces): camera, first obs, end obs; cameras ascending
+    piece_start: torch.Tensor   # (C + 1,): CSR starts of each camera's pieces
+    empty: torch.Tensor         # (n_empty,): the cameras with no observation
+    ticket: torch.Tensor        # (C + 1,) int32 zeros: K2's counter per camera, then K3's
+    partial: torch.Tensor       # (n_pieces, CAM_SUMS) f32: K2's sums per piece
+    cost_partial: torch.Tensor  # (n_pieces,) f32: K3's sums per block (at most n_pieces)
+
+
+def linearize_schedule(cam_start, *, device=None, threads: int = LIN_THREADS,
+                       piece_obs: int = PIECE_OBS) -> LinSchedule:
+    """K2's and K3's schedule from ``cam_start`` (the camera-sorted
+    observations' CSR starts, one per camera and one past the last). A
+    camera of L observations becomes ceil(L / ``piece_obs``) pieces of
+    near-equal length, so that no block of a split camera is left with a
+    short remainder while another works a full piece."""
+    if isinstance(cam_start, torch.Tensor):
+        cam_start = cam_start.cpu().numpy()
+    starts = np.asarray(cam_start, dtype=np.int64)
+    lens = np.diff(starts)
+    if starts.size == 0 or starts[0] != 0 or (lens.size and lens.min() < 0):
+        raise ValueError("cam_start must be non-decreasing from 0")
+    if threads not in (64, 128, 256):
+        raise ValueError(f"threads must be 64, 128 or 256, got {threads}")
+    if not 1 <= piece_obs <= MAX_PIECE_OBS:
+        raise ValueError(f"piece_obs must lie in [1, {MAX_PIECE_OBS}], got {piece_obs}")
+    n_split = -(-lens // piece_obs)                            # 0 for an empty camera
+    owner = np.repeat(np.arange(lens.size), n_split)            # camera of each piece
+    first = np.repeat(np.cumsum(n_split) - n_split, n_split)    # its first piece
+    k, n, length = np.arange(owner.size) - first, n_split[owner], lens[owner]
+    lo = starts[owner] + k * length // n
+    hi = starts[owner] + (k + 1) * length // n
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
+
+    n_pieces = owner.size
+    return LinSchedule(
+        threads=threads, piece_obs=piece_obs, n_obs=int(starts[-1]),
+        longest=int(lens.max()) if lens.size else 0,
+        pieces=t(np.stack([owner, lo, hi]).reshape(3, -1)),
+        piece_start=t(np.concatenate([[0], np.cumsum(n_split)])),
+        empty=t(np.flatnonzero(lens == 0)),
+        ticket=torch.zeros(lens.size + 1, dtype=torch.int32, device=device),
+        partial=torch.empty((n_pieces, CAM_SUMS), dtype=torch.float32, device=device),
+        cost_partial=torch.empty((n_pieces,), dtype=torch.float32, device=device))
 
 
 def _projection_core(cameras, points, obs_2d, cam_idx, pt_idx, mask):
@@ -161,31 +235,53 @@ def _check_inputs(cameras, points, obs_2d, cam_idx, pt_idx, mask, robust_kind):
     return dev, C, O
 
 
+def _check_schedule(sched, C: int, O: int, dev) -> int:
+    """Raise unless ``sched`` is a ``LinSchedule`` for C cameras and O
+    observations on ``dev``; returns its number of pieces."""
+    if not isinstance(sched, LinSchedule):
+        raise ValueError("K2 and K3 on CUDA need the linearize schedule "
+                         "(build_plans: AssemblyPlans.lin_sched)")
+    if sched.piece_start.shape[0] != C + 1 or sched.n_obs != O:
+        raise ValueError(f"linearize schedule of {sched.piece_start.shape[0] - 1} cameras and "
+                         f"{sched.n_obs} observations, expected {C} and {O}")
+    n_pieces, n_empty = sched.pieces.shape[1], sched.empty.shape[0]
+    _lib.check_tensor("pieces", sched.pieces, torch.int32, (3, n_pieces), dev)
+    _lib.check_tensor("piece_start", sched.piece_start, torch.int32, (C + 1,), dev)
+    _lib.check_tensor("empty", sched.empty, torch.int32, (n_empty,), dev)
+    _lib.check_tensor("ticket", sched.ticket, torch.int32, (C + 1,), dev)
+    _lib.check_tensor("partial", sched.partial, torch.float32, (n_pieces, CAM_SUMS), dev)
+    _lib.check_tensor("cost_partial", sched.cost_partial, torch.float32, (n_pieces,), dev)
+    return n_pieces
+
+
 def fused_linearize_assemble(cameras, points, obs_2d, cam_idx, pt_idx, mask,
-                             cam_start=None, *, robust_kind: int = 0,
-                             robust_scale: float = 1.0, freeze_cols: tuple = ()):
+                             cam_start=None, *, sched: LinSchedule | None = None,
+                             robust_kind: int = 0, robust_scale: float = 1.0,
+                             freeze_cols: tuple = ()):
     """One fused pass: (cameras, points) → (U (C,9,9), gc (C,9), W (27,O),
     pt_vals (13,O): VtV (9) | gp (3) | ρ (1)).
 
-    A CPU tensor takes the plain version. A CUDA tensor launches K2, which
-    walks each camera's run of observations from ``cam_start`` (``C + 1``
-    int32 CSR starts of the camera-sorted ``cam_idx``)."""
+    A CPU tensor takes the plain version. A CUDA tensor launches K2 over
+    ``sched`` (``linearize_schedule`` of the camera-sorted observations'
+    ``cam_start``, ``AssemblyPlans.lin_sched``), and raises without it;
+    ``cam_start`` itself is not read there."""
     if cameras.device.type == "cpu":
         return fused_linearize_assemble_plain(
             cameras, points, obs_2d, cam_idx, pt_idx, mask, robust_kind=robust_kind,
             robust_scale=robust_scale, freeze_cols=freeze_cols)
     dev, C, O = _check_inputs(cameras, points, obs_2d, cam_idx, pt_idx, mask, robust_kind)
-    if cam_start is None:
-        raise ValueError("fused_linearize_assemble on CUDA needs cam_start (see solver/plans.py)")
-    _lib.check_tensor("cam_start", cam_start, torch.int32, (C + 1,), dev)
+    n_pieces = _check_schedule(sched, C, O, dev)
     lib = _lib.load_library()
     U = torch.empty((C, 9, 9), dtype=torch.float32, device=dev)
     gc = torch.empty((C, 9), dtype=torch.float32, device=dev)
     obs_out = torch.empty((OBS_ROWS, O), dtype=torch.float32, device=dev)
     status = lib.tba_linearize(
         cameras.data_ptr(), points.data_ptr(), obs_2d.data_ptr(), pt_idx.data_ptr(),
-        mask.data_ptr(), cam_start.data_ptr(), C, O, int(robust_kind), float(robust_scale),
-        _freeze_mask(freeze_cols), U.data_ptr(), gc.data_ptr(), obs_out.data_ptr(),
+        mask.data_ptr(), sched.pieces.data_ptr(), n_pieces, sched.piece_obs,
+        sched.piece_start.data_ptr(), sched.empty.data_ptr(), sched.empty.shape[0], O,
+        sched.threads, int(robust_kind),
+        float(robust_scale), _freeze_mask(freeze_cols), U.data_ptr(), gc.data_ptr(),
+        obs_out.data_ptr(), sched.partial.data_ptr(), sched.ticket.data_ptr(),
         _lib.stream_ptr(cameras))
     _lib.launches["linearize"] += 1
     _lib.check_status("linearize", status)
@@ -193,21 +289,23 @@ def fused_linearize_assemble(cameras, points, obs_2d, cam_idx, pt_idx, mask,
 
 
 def fused_cost(cameras, points, obs_2d, cam_idx, pt_idx, mask, *,
-               robust_kind: int = 0, robust_scale: float = 1.0):
+               sched: LinSchedule | None = None, robust_kind: int = 0,
+               robust_scale: float = 1.0):
     """Robust reprojection cost ½Σρ as a 0-dim tensor. A CPU tensor takes
-    the plain version; a CUDA tensor launches K3."""
+    the plain version; a CUDA tensor launches K3 over K2's ``sched``, and
+    raises without it."""
     if cameras.device.type == "cpu":
         return fused_cost_plain(cameras, points, obs_2d, cam_idx, pt_idx, mask,
                                 robust_kind=robust_kind, robust_scale=robust_scale)
     dev, C, O = _check_inputs(cameras, points, obs_2d, cam_idx, pt_idx, mask, robust_kind)
+    n_pieces = _check_schedule(sched, C, O, dev)
     lib = _lib.load_library()
-    n_partial = max(1, min(-(-O // _COST_THREADS), _COST_MAX_BLOCKS))
-    partial = torch.empty((n_partial,), dtype=torch.float32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
     status = lib.tba_cost(
-        cameras.data_ptr(), points.data_ptr(), obs_2d.data_ptr(), cam_idx.data_ptr(),
-        pt_idx.data_ptr(), mask.data_ptr(), O, int(robust_kind), float(robust_scale),
-        partial.data_ptr(), n_partial, out.data_ptr(), _lib.stream_ptr(cameras))
+        cameras.data_ptr(), points.data_ptr(), obs_2d.data_ptr(), pt_idx.data_ptr(),
+        mask.data_ptr(), sched.pieces.data_ptr(), n_pieces, int(robust_kind),
+        float(robust_scale), sched.cost_partial.data_ptr(), sched.ticket[C:].data_ptr(),
+        out.data_ptr(), _lib.stream_ptr(cameras))
     _lib.launches["cost"] += 1
     _lib.check_status("cost", status)
     return out

@@ -111,14 +111,15 @@ def lm_loop(cams0, pts0, obs, ci, pi, mask, n_cameras: int, n_points: int,
 
     def cost_fn(cams, pts):
         if use_fused:
-            return fused_cost(cams, pts, obs, ci, pi, mask, robust_kind=kind, robust_scale=scale)
+            return fused_cost(cams, pts, obs, ci, pi, mask, sched=plans.lin_sched,
+                              robust_kind=kind, robust_scale=scale)
         return _robust_cost(residuals_bal(cams, pts, obs, ci, pi, mask), kind, scale, mask)
 
     def linearize(cams, pts) -> BlockSystem:
         if use_fused:
             U, gc, W, pt_vals = fused_linearize_assemble(
-                cams, pts, obs, ci, pi, mask, plans.cam_start, robust_kind=kind,
-                robust_scale=scale, freeze_cols=config.freeze_camera_cols)
+                cams, pts, obs, ci, pi, mask, plans.cam_start, sched=plans.lin_sched,
+                robust_kind=kind, robust_scale=scale, freeze_cols=config.freeze_camera_cols)
             ptp = pt_segsum_t(plans, pt_vals[:12], pi, n_points)
             return BlockSystem(U=U, V=ptp[:9], W=W, gc=gc, gp=ptp[9:12],
                                cost=0.5 * torch.sum(pt_vals[12]), cam_idx=ci, pt_idx=pi)

@@ -11,7 +11,9 @@ observation index maps and reused for every LM iteration and CG matvec:
     kernels read segment k as the run ``[start[k], start[k+1])``; these
     replace the reference's one-hot ``SegsumPlan`` work lists;
   * ``cam_longest`` / ``pt_longest``: the longest segment of each, from
-    which K1 picks its schedule (``kernels/segsum.py:group_log2``).
+    which K1 picks its schedule (``kernels/segsum.py:group_log2``);
+  * ``lin_sched``: K2's and K3's schedule, each camera's run cut into pieces
+    (``kernels/linearize.py:linearize_schedule``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpu_ba_torch.kernels.linearize import LinSchedule, linearize_schedule
 from tpu_ba_torch.kernels.segsum import sorted_segment_sum_t, sorted_segment_sum_t_plain
 
 
@@ -32,6 +35,7 @@ class AssemblyPlans:
     pt_start: torch.Tensor        # (P+1,) int32 CSR starts of pt_sorted_keys
     cam_longest: int | None = None   # observations of the camera with the most
     pt_longest: int | None = None    # observations of the point with the most
+    lin_sched: LinSchedule | None = None   # K2's and K3's pieces
 
 
 def _csr_starts(sorted_keys: np.ndarray, n: int) -> np.ndarray:
@@ -69,6 +73,7 @@ def build_plans(cam_idx, pt_idx, n_cameras: int, n_points: int) -> AssemblyPlans
         pt_start=t(pt_start),
         cam_longest=longest_segment(cam_start),
         pt_longest=longest_segment(pt_start),
+        lin_sched=linearize_schedule(cam_start, device=device),
     )
 
 
