@@ -38,6 +38,19 @@ Phases, one line each (the end-to-end phase a few):
                launched by that solve, no per-CG-iteration host read on the
                sparse paths; then 5 iterations each of Huber, Cauchy and
                arctan, whose cost must not rise;
+  resume   — the user's path around that solve, each result held bit for bit
+               (torch.equal) against the schur_sparse_pallas solve above:
+               save_bal of the problem to a temporary file, load_bal through
+               the native parser and the Python tokenizer (both equal to the
+               problem in memory), the loaded problem's solve (K1–K7 launched
+               and no other kernel, within 1% of the golden), the same with
+               checkpoint_every=20 and =10 (timed against the uninterrupted
+               solve), a run killed at 40 (dumps every 10) and resumed to 80,
+               the checkpoint's safetensors bytes through the reader, and
+               python -m tpu_ba_torch.cli ba --bal-file ... --checkpoint-every
+               20 --metrics ... --save-scene ... as a subprocess (the
+               library's final cost, metrics ending in lm_solve, the scene
+               reloading equal); its timings on one line;
   6. tiers   — heavy tracks (ladybug-49, max_degree=3) and the dense tiers
                (a 10-camera synthetic problem) on the card, each step against
                schur_sparse's in f64 (1e-8), and the dense tiers through
@@ -296,6 +309,168 @@ def tridiag_is_pd(D, B_up):
         if np.linalg.eigvalsh(0.5 * (S + S.T)).min() <= 0.0:
             return False
     return True
+
+
+def phase_resume(torch, problem, full, cfg, golden, kernels):
+    """The ladybug-1723 problem through a BAL file, chunked and resumed
+    solves and the command line, each held bit for bit against ``full``,
+    the uninterrupted schur_sparse_pallas solve of phase 5 (``cfg``)."""
+    import shutil
+    import tempfile
+
+    from tpu_ba_torch.checkpoint.state import (load_checkpoint, safetensors_arrays,
+                                               safetensors_bytes)
+    from tpu_ba_torch.io import native
+    from tpu_ba_torch.io.bal import load_bal, save_bal
+    from tpu_ba_torch.io.scene import load_scene
+    from tpu_ba_torch.kernels import _lib
+    from tpu_ba_torch.solver import pcg as pcg_mod
+    from tpu_ba_torch.solver.lm import save_result, solve
+
+    fields = ("cameras", "points", "obs_2d", "cam_idx", "pt_idx", "mask")
+    t = {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t[key] = time.perf_counter() - t0
+        return out
+
+    def same(a, b, names, what):
+        bad = [f for f in names if not torch.equal(getattr(a, f), getattr(b, f))]
+        if bad:
+            raise AssertionError(f"{what}: {bad} differ from the uninterrupted solve")
+
+    def solve_counted(key, prob, config, **kw):
+        _lib.reset_launches()
+        pcg_mod.reset_host_reads()
+        res = timed(key, lambda: solve(prob, config, **kw))
+        res.cost.item()
+        launched = {k: v for k, v in _lib.launches.items() if v}
+        if set(launched) != set(kernels):
+            raise AssertionError(f"{key}: launched {launched}, the path's kernels are {kernels}")
+        return res, dict(pcg_mod.host_reads)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        bal = os.path.join(tmp, "ladybug-1723.txt")
+        timed("save_bal_s", lambda: save_bal(bal, problem))
+        t["bal_bytes"] = os.path.getsize(bal)
+        timed("native_build_s", native.load_library)
+        for key, use_native in (("load_bal_native_s", True), ("load_bal_python_s", False)):
+            loaded = timed(key, lambda: load_bal(bal, use_native=use_native,
+                                                 device=problem.device))
+            same(loaded, problem, fields, f"load_bal(use_native={use_native})")
+            if (loaded.n_cameras, loaded.n_points, loaded.n_obs) != (
+                    problem.n_cameras, problem.n_points, problem.n_obs):
+                raise AssertionError(f"load_bal(use_native={use_native}): counts differ")
+        say("resume", f"save_bal {t['bal_bytes']} bytes in {t['save_bal_s']:.3f} s; load_bal "
+                      f"native {t['load_bal_native_s']:.3f} s (g++ build {t['native_build_s']:.3f}"
+                      f" s before), Python tokenizer {t['load_bal_python_s']:.3f} s; both equal "
+                      f"the problem in memory bit for bit")
+
+        result_fields = ("cameras", "points", "cost", "initial_cost", "lam", "nu", "warm_dxc",
+                         "gnorm0", "iterations", "accepted", "converged", "cost_history",
+                         "lam_history", "cg_history")
+        res, reads = solve_counted("solve_s", loaded, cfg)
+        same(res, full, result_fields, "the solve of the loaded problem")
+        gap = (res.cost.item() - golden["final_cost"]) / golden["final_cost"]
+        if not abs(gap) < 0.01:
+            raise AssertionError(f"loaded problem: cost {res.cost.item()} not within 1% of golden")
+        iters = int(res.iterations)
+        chunk_reads, configs = {}, {"uninterrupted": cfg}
+        for every in (20, 10):
+            ck = os.path.join(tmp, f"ck{every}")
+            configs[f"every{every}"] = dataclasses.replace(cfg, checkpoint_every=every,
+                                                           checkpoint_path=ck)
+            res_c, chunk_reads[every] = solve_counted(f"every{every}_s", loaded,
+                                                      configs[f"every{every}"])
+            same(res_c, full, result_fields, f"checkpoint_every={every}")
+            if load_checkpoint(ck)["iteration"] != iters:
+                raise AssertionError(f"checkpoint_every={every}: last dump not at {iters}")
+        # LM it/s of the three, in turns on one clock; the median of 9 each
+        runs = {k: [] for k in configs}
+        for _ in range(9):
+            for k, c in configs.items():
+                timed("run_s", lambda: solve(loaded, c).cost.item())
+                runs[k].append(iters / t["run_s"])
+        del t["run_s"]
+        for k, v in runs.items():
+            t[f"lm_it_s_{k}"] = statistics.median(v)
+            t[f"lm_it_s_{k}_runs"] = v
+        ck = os.path.join(tmp, "dump")
+        dumps = []
+        for _ in range(5):
+            timed("dump_s", lambda: save_result(ck, full))
+            dumps.append(t["dump_s"])
+        del t["dump_s"]
+        t["dump_ms"] = 1e3 * statistics.median(dumps)
+        t["dump_bytes"] = sum(os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck))
+        say("resume", f"{iters} LM iterations, cost {res.cost.item():.6f} (gap {100 * gap:+.5f}%),"
+                      f" equal bit for bit to phase 5's, and so are checkpoint_every=20 and =10;"
+                      f" LM it/s in turns, median of 9: uninterrupted "
+                      f"{t['lm_it_s_uninterrupted']:.3f}, checkpoint_every=20 "
+                      f"{t['lm_it_s_every20']:.3f}, =10 {t['lm_it_s_every10']:.3f}; host reads "
+                      f"{reads} / {chunk_reads[20]} / {chunk_reads[10]}; a dump "
+                      f"{t['dump_ms']:.3f} ms for {t['dump_bytes']} bytes")
+
+        killed = os.path.join(tmp, "killed")
+        k_res = solve(loaded, dataclasses.replace(cfg, max_iters=40, checkpoint_every=10,
+                                                  checkpoint_path=killed))
+        if load_checkpoint(killed)["iteration"] != 40:
+            raise AssertionError("the killed run's last dump is not at iteration 40")
+        resumed = timed("resumed_s", lambda: solve(loaded, cfg, resume_from=killed))
+        same(resumed, full, ("cameras", "points", "cost", "lam", "nu", "iterations"),
+             "killed at 40 and resumed")
+        for f in ("cost_history", "cg_history", "lam_history"):
+            if not torch.equal(getattr(resumed, f)[40:], getattr(full, f)[40:]):
+                raise AssertionError(f"killed at 40 and resumed: {f}[40:] differs")
+        with open(os.path.join(killed, "state.safetensors"), "rb") as fh:
+            raw = fh.read()
+        arrays = safetensors_arrays(raw)
+        if safetensors_bytes(arrays) != raw or not all(
+                np_equal(arrays[k], getattr(k_res, k)) for k in ("cameras", "points")):
+            raise AssertionError("the checkpoint's safetensors bytes do not round-trip")
+        say("resume", "killed at 40 (dumps every 10) and resumed to 80: cost, cameras, points, "
+                      "histories from 40 equal to the uninterrupted run; the checkpoint's "
+                      f"{len(raw)} safetensors bytes round-trip through the reader")
+
+        ck, metrics, scene = (os.path.join(tmp, n) for n in ("cli_ck", "m.jsonl", "s.npz"))
+        cmd = [sys.executable, "-m", "tpu_ba_torch.cli", "ba", "--bal-file", bal, "--solver",
+               "schur_sparse_pallas", "--max-iters", str(cfg.max_iters), "--cg-iters",
+               str(cfg.cg_max_iters), "--cg-tol", repr(cfg.cg_tol), "--checkpoint", ck,
+               "--checkpoint-every", "20", "--metrics", metrics, "--save-scene", scene]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
+        t["cli_s"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd)} exited {proc.returncode}:\n{proc.stderr}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        with open(metrics) as fh:
+            last = json.loads(fh.read().strip().splitlines()[-1])
+        saved = load_scene(scene, device=problem.device)
+        if not (out["final_cost"] == full.cost.item() and out["device"] == str(problem.device)
+                and last["event"] == "lm_solve" and last["final_cost"] == out["final_cost"]
+                and load_checkpoint(ck)["iteration"] == iters):
+            raise AssertionError(f"the command line gave {out}, metrics {last['event']}; the "
+                                 f"library {full.cost.item()}")
+        same(saved, full, ("cameras", "points"), "the command line's saved scene")
+        same(saved, problem, fields[2:], "the command line's saved scene")
+        say("resume", f"python -m tpu_ba_torch.cli ba --bal-file ...: final cost "
+                      f"{out['final_cost']:.6f} = the library's, {out['wall_s']:.3f} s in its "
+                      f"solve, {t['cli_s']:.3f} s the whole process; metrics end in lm_solve; "
+                      f"the saved scene reloads equal")
+        print("[resume] timings " + json.dumps(t), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def np_equal(a, t):
+    """A host array equal, in dtype, shape and values, to a tensor."""
+    b = t.detach().cpu().numpy()
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
 
 
 def main() -> int:
@@ -1149,12 +1324,12 @@ def main() -> int:
         if sparse_path and reads["cg"] != 0:
             raise AssertionError(f"{name}: {reads['cg']} per-CG-iteration host reads, expected 0")
         return launches, dict(lm_it_s=iters / steady_s, cg_total=cg_total, gap_pct=100 * gap,
-                              iterations=iters, peak_mib=peak / 2**20)
+                              iterations=iters, peak_mib=peak / 2**20), res
 
-    path_launches, path_figures = {}, {}
+    path_launches, path_figures, path_results = {}, {}, {}
     for name, tier, precond, kernels in PATHS:
         cfg = LMConfig(linear_solver=tier, precond=precond, **golden_cfg)
-        path_launches[name], path_figures[name] = run_path(
+        path_launches[name], path_figures[name], path_results[name] = run_path(
             problem, f"{PROBLEM} {tier} precond {precond}", cfg, kernels, golden,
             tier == "schur_sparse_pallas")
     fa, fj = path_figures["tridiag"], path_figures["schur_sparse_pallas"]
@@ -1176,7 +1351,13 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"{rname}: cost not finite or rising: {c0} -> {hist}")
 
-    del problem, plans, plan, plain_plan
+    # 5b. the user's path around the main solve: BAL file, checkpointed
+    # chunks, kill and resume, the command line
+    sparse_kernels = next(k for n, _, _, k in PATHS if n == "schur_sparse_pallas")
+    phase_resume(torch, problem, path_results["schur_sparse_pallas"],
+                 LMConfig(linear_solver="schur_sparse_pallas", **golden_cfg), golden,
+                 sparse_kernels)
+    del problem, plans, plan, plain_plan, path_results
 
     # 6. heavy tracks and the dense tiers on the card: each linear step against
     # schur_sparse's on the same system in f64 (plain PyTorch on the card)
@@ -1252,7 +1433,7 @@ def main() -> int:
     t_kernels = (("segsum", "linearize", "cost", "pcg_band", "pairblocks")
                  + (("trackband",) if tplan.track is not None else ())
                  + (("slotband",) if tplan.slot is not None else ()))
-    t_launches, _ = run_path(tp, f"trafalgar-257 schur_sparse_pallas {tgold['robust']}", tcfg,
+    t_launches, _, _ = run_path(tp, f"trafalgar-257 schur_sparse_pallas {tgold['robust']}", tcfg,
                              t_kernels, tgold, True)
     del tp
 
@@ -1368,7 +1549,7 @@ def main() -> int:
     r2["bound_ms_venice"], _ = bound(*lin_bounds(Cv, Pv, Ov, vsched)[0])
     say("venice", f"K2 linearize at this shape: {r2['ms_venice']:.4f} ms (eager events), bound "
                   f"{r2['bound_ms_venice']:.4f} ms")
-    v_launches, v_fig = run_path(vp, "venice-1778-community schur_sparse_pallas", vcfg,
+    v_launches, v_fig, _ = run_path(vp, "venice-1778-community schur_sparse_pallas", vcfg,
                                  VENICE_KERNELS, vgold, False)
     del vp
 

@@ -28,10 +28,11 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_ba_torch.checkpoint import load_checkpoint, save_checkpoint
 from tpu_ba_torch.core import LMConfig, make_problem
-from tpu_ba_torch.io.bal import make_bal_like_problem
+from tpu_ba_torch.io.bal import load_bal, make_bal_like_problem, save_bal
 from tpu_ba_torch.io.synthetic import make_synthetic_problem
-from tpu_ba_torch.jacobians.analytic import jacobian_blocks_bal
+from tpu_ba_torch.jacobians import jacobian_blocks_bal, jacobian_blocks_bal_autodiff
 from tpu_ba_torch.kernels import _lib
 from tpu_ba_torch.kernels.linearize import (fused_cost, fused_cost_plain,
                                             fused_linearize_assemble,
@@ -964,7 +965,7 @@ def test_sparse_solve_on_the_card_matches_the_plain_versions(dev):
     assert _lib.launches == launched        # the CPU solve launched nothing
     for name in ("segsum", "linearize", "cost", "pairblocks", "trackband", "pcg_band"):
         assert launched[name] > 0, launched
-    assert launched["pcg_band"] == 6 and reads == {"cg": 0, "lm": 6}
+    assert launched["pcg_band"] == 6 and reads == {"cg": 0, "lm": 6, "state": 0}
     assert int(res.iterations) == int(ref.iterations) == 6
     assert int(res.accepted) == int(ref.accepted)
     np.testing.assert_allclose(res.cost.item(), ref.cost.item(), rtol=5e-4)
@@ -1158,7 +1159,7 @@ def test_tridiag_solve_on_the_card_matches_the_plain_versions(dev):
     ref = solve(p_cpu, cfg)
     assert _lib.launches == launched
     assert launched["pcg_band_given"] == 6 and launched["pcg_band"] == 0
-    assert reads == {"cg": 0, "lm": 6}
+    assert reads == {"cg": 0, "lm": 6, "state": 0}
     assert int(res.accepted) == int(ref.accepted)
     np.testing.assert_allclose(res.cost.item(), ref.cost.item(), rtol=5e-4)
     again = solve(p_dev, cfg)
@@ -1206,3 +1207,65 @@ def test_non_banded_heavy_and_dense_tiers_on_the_card(dev, tmp_path, monkeypatch
                                        device="cpu")
     rc, _, _, rok = pairs_mod.solve_schur_sparse(Bc, lam.cpu(), plan_c, **kw)
     assert bool(ok) and bool(rok) and _rel_err(dxc, rc.double().to(dev)) <= 1e-3
+
+
+# ---- checkpoint and resume, BAL files, the autodiff oracle ----
+
+def test_checkpoint_round_trip_of_card_tensors(dev, tmp_path):
+    cams = torch.randn(7, 9, device=dev)
+    pts = torch.randn(40, 3, device=dev, dtype=torch.float64)
+    save_checkpoint(str(tmp_path), cameras=cams, points=pts, lam=1e-3, iteration=5,
+                    cost=2.5, extra={"warm_dxc": torch.zeros_like(cams), "nu": np.asarray(4.0)})
+    ck = load_checkpoint(str(tmp_path))
+    assert ck["cameras"].dtype == np.float32 and ck["points"].dtype == np.float64
+    assert torch.equal(torch.from_numpy(ck["cameras"]), cams.cpu())
+    assert torch.equal(torch.from_numpy(ck["points"]), pts.cpu())
+    assert ck["iteration"] == 5 and float(ck["extra_tensors"]["nu"]) == 4.0
+
+
+def test_chunked_and_resumed_solves_on_the_card(dev, tmp_path, monkeypatch):
+    """ladybug-49 through schur_sparse_pallas in f32 at the golden's CG
+    settings: chunks of 4, and a run killed at 6 and resumed to 12, are the
+    uninterrupted solve bit for bit, and launch its kernels."""
+    monkeypatch.chdir(tmp_path)
+    p, _ = make_bal_like_problem("ladybug-49", device=dev)
+    cfg = dict(max_iters=12, cg_max_iters=100, cg_tol=1e-4, linear_solver="schur_sparse_pallas")
+    full = solve(p, LMConfig(**cfg))
+    _lib.reset_launches()
+    pcg_mod.reset_host_reads()
+    chunked = solve(p, LMConfig(checkpoint_every=4, checkpoint_path="ck", **cfg))
+    n_chunks = -(-int(full.iterations) // 4)
+    # a read and a dump a chunk, and a λ read at each chunk's start but the first
+    assert pcg_mod.host_reads["state"] == 3 * n_chunks - 1
+    for name in ("segsum", "linearize", "cost", "pcg_band", "pairblocks", "trackband"):
+        assert _lib.launches[name] > 0, _lib.launches
+    for f in ("cameras", "points", "cost", "lam", "nu", "warm_dxc", "gnorm0", "iterations",
+              "accepted", "cost_history", "lam_history", "cg_history"):
+        assert torch.equal(getattr(chunked, f), getattr(full, f)), f
+    solve(p, LMConfig(**dict(cfg, max_iters=6), checkpoint_every=3, checkpoint_path="killed"))
+    assert load_checkpoint("killed")["iteration"] == 6
+    res = solve(p, LMConfig(**cfg), resume_from="killed")
+    for f in ("cameras", "points", "cost", "lam", "nu"):
+        assert torch.equal(getattr(res, f), getattr(full, f)), f
+    for f in ("cost_history", "cg_history"):
+        assert torch.equal(getattr(res, f)[6:], getattr(full, f)[6:]), f
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+def test_load_bal_onto_the_card(dev, tmp_path, use_native):
+    p, _ = make_synthetic_problem(10, 100, obs_per_point=4, seed=11, device=dev)
+    path = str(tmp_path / "p.txt")
+    save_bal(path, p)
+    q = load_bal(path, use_native=use_native, device=dev)
+    for f in ("cameras", "points", "obs_2d", "cam_idx", "pt_idx", "mask"):
+        assert getattr(q, f).device == getattr(p, f).device
+        assert torch.equal(getattr(q, f), getattr(p, f)), f
+
+
+def test_autodiff_blocks_on_the_card(dev):
+    p, _ = make_synthetic_problem(10, 100, obs_per_point=4, seed=11, device=dev,
+                                  dtype=torch.float64)
+    args = (p.cameras, p.points, p.obs_2d, p.cam_idx, p.pt_idx, p.mask)
+    for g, a in zip(jacobian_blocks_bal_autodiff(*args), jacobian_blocks_bal(*args)):
+        assert g.device == a.device and g.shape == a.shape
+        assert _rel_err(g, a) <= 1e-10

@@ -36,6 +36,9 @@ MODULES = [
     "tpu_ba_torch.kernels.pairblocks", "tpu_ba_torch.kernels.trackband",
     "tpu_ba_torch.kernels.slotband", "tpu_ba_torch.kernels._lib",
     "tpu_ba_torch.solver.tridiag", "tpu_ba_torch.solver.dense",
+    "tpu_ba_torch.checkpoint", "tpu_ba_torch.checkpoint.state", "tpu_ba_torch.io.native",
+    "tpu_ba_torch.io.scene", "tpu_ba_torch.bench", "tpu_ba_torch.bench.metrics",
+    "tpu_ba_torch.jacobians", "tpu_ba_torch.jacobians.autodiff", "tpu_ba_torch.viz",
 ]
 
 
@@ -199,11 +202,12 @@ def test_cli_ba_runs_every_tier_and_preconditioner(capsys, solver, precond):
 
 def test_port_imports_no_jax():
     """In a fresh interpreter (this one has JAX loaded by tests/conftest.py)
-    every module of the port imports without bringing in JAX."""
+    every module of the port imports without bringing in JAX, the reference
+    package or ``safetensors`` (which the card's machine lacks)."""
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m in ('jax', 'tpu_ba') or m.startswith(('jax.', 'tpu_ba.')))\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'tpu_ba', 'safetensors') or m.startswith(('jax.', 'tpu_ba.', 'safetensors.')))\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

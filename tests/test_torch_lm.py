@@ -112,16 +112,6 @@ def test_port_resumes_itself(problems):
     np.testing.assert_array_equal(res.cg_history.numpy()[3:], full.cg_history.numpy()[3:])
 
 
-@pytest.mark.parametrize("override,match", [
-    (dict(checkpoint_every=4, checkpoint_path="ck"), "item 6"),
-    (dict(nan_guard=True), "item 6"),
-])
-def test_unported_options_raise(problems, override, match):
-    _, p = problems
-    with pytest.raises(NotImplementedError, match=match):
-        solve(p, LMConfig(**override))
-
-
 def test_unknown_solver_and_model_raise(problems):
     _, p = problems
     with pytest.raises(ValueError):

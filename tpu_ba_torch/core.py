@@ -170,9 +170,8 @@ def problem_to_numpy(problem: BAProblem) -> dict:
 class LMConfig:
     """Levenberg–Marquardt trust-region configuration; the fields and
     defaults of ``tpu_ba.core.LMConfig``. This package runs every
-    ``linear_solver`` tier and both preconditioners of the reference;
-    ``solve`` refuses the options it does not run yet (checkpointing,
-    ``nan_guard``; see ``tpu_ba_torch/solver/lm.py``)."""
+    ``linear_solver`` tier and both preconditioners of the reference, and
+    its chunked checkpointing and NaN guard (``tpu_ba_torch/solver/lm.py``)."""
 
     max_iters: int = 50
     init_lambda: float = 1e-4

@@ -1,8 +1,20 @@
-"""BAL-dimension-matched stand-in problems, at the published BAL counts of
-cameras, points and observations.
+"""BAL (Bundle Adjustment in the Large) problem files, and stand-in problems
+at the published BAL counts of cameras, points and observations.
 
-Counterpart of ``tpu_ba/io/bal.py:make_bal_like_problem``, with its two
-covisibility structures: ``covis="ring"``, cameras along a closed vehicle
+Counterpart of ``tpu_ba/io/bal.py``. The file format::
+
+    <num_cameras> <num_points> <num_observations>
+    <cam_idx> <pt_idx> <x> <y>          # × num_observations
+    <camera params, 9 lines each>        # aa(3), t(3), f, k1, k2
+    <point coords, 3 lines each>
+
+``load_bal`` parses one (plain text through the native parser of
+``io/native.py`` by default, ``.gz`` or ``use_native=False`` through the
+Python tokenizer), ``save_bal`` writes the same bytes as the reference's,
+``normalize_bal`` centres and scales a scene, ``find_bal_file`` looks one up.
+
+``make_bal_like_problem`` synthesizes the stand-ins, with the reference's
+two covisibility structures: ``covis="ring"``, cameras along a closed vehicle
 loop, points in a band around it, each point seen by a window of nearby
 cameras (the Ladybug structure: camera covisibility collapses to a few index
 offsets); and ``covis="community"``, a photo collection of a landmark, as
@@ -20,7 +32,7 @@ import os
 import numpy as np
 import torch
 
-from tpu_ba_torch.core import make_problem, resolve_device
+from tpu_ba_torch.core import BAProblem, make_problem, resolve_device, to_host
 from tpu_ba_torch.io.synthetic import (_cross_np, _look_at_rotation,
                                        _matrix_to_aa_np, _project_bal_np)
 
@@ -31,6 +43,106 @@ BAL_DATASET_DIMS = {
     "trafalgar-257": (257, 65132, 225911),
     "venice-1778": (1778, 993923, 5001946),
 }
+
+
+# rows formatted per write by save_bal: bounds the Python objects alive at once
+_SAVE_ROWS = 1 << 16
+
+
+def load_bal(path: str, *, dtype=torch.float32, pad_multiple: int = 1024,
+             normalize: bool = False, use_native: bool = True, device=None) -> BAProblem:
+    """Parse a BAL text file (optionally gzipped) into a BAProblem on
+    ``device`` (default: the CUDA card, see ``resolve_device``). Plain text
+    goes through the native parser unless ``use_native`` is false; a
+    ``.gz`` file through the Python tokenizer, the oracle."""
+    if use_native and not path.endswith(".gz"):
+        from tpu_ba_torch.io.native import parse_bal_native
+
+        cams, pts, obs_2d, cam_idx, pt_idx = parse_bal_native(path)
+    else:
+        if path.endswith(".gz"):
+            import gzip
+
+            with gzip.open(path, "rt") as fh:
+                text = fh.read()
+        else:
+            with open(path) as fh:
+                text = fh.read()
+        vals = np.array(text.split(), dtype=np.float64)
+        n_cams, n_pts, n_obs = int(vals[0]), int(vals[1]), int(vals[2])
+        off = 3
+        obs_block = vals[off: off + 4 * n_obs].reshape(n_obs, 4)
+        off += 4 * n_obs
+        cams = vals[off: off + 9 * n_cams].reshape(n_cams, 9)
+        off += 9 * n_cams
+        pts = vals[off: off + 3 * n_pts].reshape(n_pts, 3)
+        cam_idx = obs_block[:, 0].astype(np.int32)
+        pt_idx = obs_block[:, 1].astype(np.int32)
+        obs_2d = obs_block[:, 2:4]
+    if normalize:
+        cams, pts = normalize_bal(cams, pts)
+    return make_problem(cams, pts, obs_2d, cam_idx, pt_idx, model="bal", dtype=dtype,
+                        pad_multiple=pad_multiple, device=device)
+
+
+def _write_rows(fh, fmt: str, rows: np.ndarray) -> None:
+    """``fmt`` applied to each row of ``rows``, a block of rows per write."""
+    for i in range(0, rows.shape[0], _SAVE_ROWS):
+        block = rows[i:i + _SAVE_ROWS]
+        fh.write((fmt * block.shape[0]) % tuple(block.ravel().tolist()))
+
+
+def save_bal(path: str, problem: BAProblem) -> None:
+    """Write a BAProblem (unpadded part) in BAL text format: the bytes
+    ``tpu_ba.io.bal.save_bal`` writes, every value in ``%.16e`` of its f64
+    value (which an f32 value survives a parse and rounding back)."""
+    n_obs = problem.n_obs
+    obs = np.empty((n_obs, 4), np.float64)       # indices are exact in f64
+    obs[:, 0] = to_host(problem.cam_idx[:n_obs])
+    obs[:, 1] = to_host(problem.pt_idx[:n_obs])
+    obs[:, 2:] = to_host(problem.obs_2d[:n_obs])
+    with open(path, "w") as fh:
+        fh.write(f"{problem.n_cameras} {problem.n_points} {n_obs}\n")
+        _write_rows(fh, "%d %d %.16e %.16e\n", obs)
+        for params in (problem.cameras, problem.points):
+            _write_rows(fh, "%.16e\n", to_host(params).astype(np.float64).reshape(-1, 1))
+
+
+def normalize_bal(cams, pts):
+    """Center/scale the scene for f32 conditioning: the point cloud's median
+    to the origin and its median absolute deviation (L1 over the axes) to
+    100, the standard BAL normalization. The camera translations follow, so
+    reprojections are unchanged: X' = s(X − m), t' = s(t + R m), since the
+    projection divides out a global scale. Numpy in, numpy out."""
+    cams = to_host(cams).copy()
+    pts = to_host(pts).copy()
+    med = np.median(pts, axis=0)
+    dev = np.median(np.abs(pts - med).sum(axis=1))
+    scale = 100.0 / max(dev, 1e-12)
+    aa = cams[:, 0:3]                               # Rodrigues, all cameras at once
+    theta = np.linalg.norm(aa, axis=1, keepdims=True)
+    k = aa / np.where(theta < 1e-12, 1.0, theta)
+    medb = np.broadcast_to(med, aa.shape)
+    ct, st = np.cos(theta), np.sin(theta)
+    Rmed = medb * ct + _cross_np(k, medb) * st + k * (k @ med)[:, None] * (1.0 - ct)
+    Rmed = np.where(theta < 1e-12, medb, Rmed)
+    cams[:, 3:6] = scale * (cams[:, 3:6] + Rmed)
+    pts = scale * (pts - med)
+    return cams, pts
+
+
+def find_bal_file(name: str, search_dirs=("data",)) -> str | None:
+    """The path of BAL problem ``name`` (``problem-<name>.txt[.gz]`` or
+    ``<name>.txt[.gz]``) in the first of ``search_dirs`` that has it, or
+    None."""
+    candidates = [f"problem-{name}.txt", f"problem-{name}.txt.gz", f"{name}.txt",
+                  f"{name}.txt.gz"]
+    for d in search_dirs:
+        for c in candidates:
+            p = os.path.join(d, c)
+            if os.path.exists(p):
+                return p
+    return None
 
 
 def make_bal_like_problem(

@@ -13,7 +13,16 @@ Host reads: each λ-retry brings one small tensor to the host (accepted,
 were the last), and each CG iteration of the host-loop PCG one flag
 (``solver/pcg.py``); both are counted in
 ``tpu_ba_torch.solver.pcg.host_reads``. The banded PCG kernel (K4, K8) runs
-its loop on the device and reads nothing.
+its loop on the device and reads nothing. A solve resumed from a given
+state reads λ's ceiling test once; the chunked solve (``checkpoint_every``,
+``nan_guard``) reads its counts, cost and finiteness once a chunk and, when
+it dumps a checkpoint, copies the state to the host in one transfer.
+
+Chunked solves and resumed solves are the uninterrupted solve bit for bit:
+the loop state at a chunk's boundary is (parameters, λ, ν, iteration count,
+warm-start step, g₀), and what a new chunk recomputes from it (the cost by
+``cost_fn``, the linearization at the same parameters) the uninterrupted
+loop computed the same way.
 
 Linear-solver tiers (the names are the reference's):
   * "dense"               — the full damped normal equations solved directly
@@ -45,6 +54,7 @@ import hashlib
 import numpy as np
 import torch
 
+from tpu_ba_torch.checkpoint.state import load_checkpoint, save_checkpoint
 from tpu_ba_torch.core import BAProblem, LMConfig, LMResult
 from tpu_ba_torch.jacobians.analytic import jacobian_blocks_bal
 from tpu_ba_torch.kernels.linearize import fused_cost, fused_linearize_assemble
@@ -54,7 +64,7 @@ from tpu_ba_torch.solver.dense import solve_dense
 from tpu_ba_torch.solver.normal import BlockSystem, assemble
 from tpu_ba_torch.solver.pairs import (build_pair_plan, precompute_pair_data, solve_schur_dense,
                                        solve_schur_sparse)
-from tpu_ba_torch.solver.pcg import read_flags
+from tpu_ba_torch.solver.pcg import host_reads, read_flags
 from tpu_ba_torch.solver.plans import build_plans, pt_segsum_t
 from tpu_ba_torch.solver.schur import solve_schur_pcg
 
@@ -64,17 +74,11 @@ TIERS = ("dense", "schur_pcg", "schur_pcg_pallas") + DENSE_TIERS + SPARSE_TIERS
 
 
 def check_config(config: LMConfig) -> None:
-    """Raise ValueError for an unknown tier or preconditioner and
-    NotImplementedError for what this package does not run yet."""
+    """Raise ValueError for an unknown tier or preconditioner."""
     if config.linear_solver not in TIERS:
         raise ValueError(f"unknown linear_solver {config.linear_solver!r}")
     if config.precond not in ("jacobi", "tridiag"):
         raise ValueError(f"precond must be 'jacobi' or 'tridiag', got {config.precond!r}")
-    if config.checkpoint_every > 0:
-        raise NotImplementedError(
-            "checkpoint_every>0 (chunked checkpointing) is not ported yet: ROADMAP queue 1, item 6")
-    if config.nan_guard:
-        raise NotImplementedError("nan_guard is not ported yet: ROADMAP queue 1, item 6")
 
 
 def _robust_cost(r, kind, scale, mask):
@@ -83,12 +87,15 @@ def _robust_cost(r, kind, scale, mask):
 
 
 def lm_loop(cams0, pts0, obs, ci, pi, mask, n_cameras: int, n_points: int,
-            config: LMConfig, plans=None, init_state=None, pairs=None) -> LMResult:
+            config: LMConfig, plans=None, init_state=None, pairs=None,
+            stop_at: int | None = None) -> LMResult:
     """The LM trust-region loop. ``pairs`` is the pair plan of the sparse
     and dense-Schur tiers (``solver/pairs.py``). ``init_state`` = (lam, nu, it[, warm_dxc,
     gnorm0]) — numbers, numpy arrays or tensors, e.g. from a ``tpu_ba``
     LMResult — resumes the trust-region state; with cams0/pts0 from the same
-    source the resumed trajectory is the uninterrupted one."""
+    source the resumed trajectory is the uninterrupted one. ``stop_at``
+    pauses the loop at that iteration count (a chunk's boundary); the
+    histories keep ``config.max_iters`` slots."""
     check_config(config)
     sparse = config.linear_solver in SPARSE_TIERS
     paired = sparse or config.linear_solver in DENSE_TIERS
@@ -159,18 +166,21 @@ def lm_loop(cams0, pts0, obs, ci, pi, mask, n_cameras: int, n_points: int,
         if len(init_state) > 3:
             warm = as_tensor(init_state[3])
             gnorm0 = as_scalar(init_state[4])
+        # λ below its ceiling, in the working dtype
+        (lam_ok,) = read_flags("state", lam < config.max_lambda)
     else:
         lam = as_scalar(config.init_lambda)
         nu = as_scalar(2.0)
         it = 0
-    lam_ok = bool(lam < config.max_lambda)   # λ below its ceiling, in the working dtype
+        lam_ok = bool(np.asarray(config.init_lambda, np_dtype) < config.max_lambda)
+    limit = M if stop_at is None else min(int(stop_at), M)
 
     cams, pts, cost = cams0, pts0, cost0
     n_acc = 0
     gnorm = as_scalar(np.inf)
     done = False
     pair_data = None
-    while it < M and not done:
+    while it < limit and not done:
         # drop the last linearization's pair gathers (gigabytes at Venice
         # scale) before the next ones are made
         B = pair_data = None
@@ -192,7 +202,7 @@ def lm_loop(cams0, pts0, obs, ci, pi, mask, n_cameras: int, n_points: int,
         # its ceiling, and then the solve is done
         accepted, done = False, True
         dxc = warm
-        while not accepted and it < M and lam_ok:
+        while not accepted and it < limit and lam_ok:
             dxc, dxp, n_cg, solve_ok = linear_solve(
                 B, lam, pair_data, dxc if config.cg_warm_start else None, cg_tol)
             new_cams = cams + dxc
@@ -306,11 +316,15 @@ def build_solver_plans(problem: BAProblem, config: LMConfig):
 
 
 def solve(problem: BAProblem, config: LMConfig | None = None, *,
-          init_state=None) -> LMResult:
+          init_state=None, resume_from: str | None = None) -> LMResult:
     """Bundle-adjust ``problem`` with Levenberg–Marquardt on the problem's
     device. The ``*_pallas`` tiers run the hand-written kernels; on CPU
     tensors the kernels' plain versions run instead. Plans are those of
-    ``build_solver_plans``. ``init_state`` is that of ``lm_loop``."""
+    ``build_solver_plans``, built once per solve. ``init_state`` is that of
+    ``lm_loop``; ``resume_from`` names a checkpoint directory (of either
+    package) whose parameters and trust-region state the solve continues
+    from. ``config.checkpoint_every`` > 0 (with ``checkpoint_path``) or
+    ``config.nan_guard`` runs the solve in chunks (``_solve_chunked``)."""
     if config is None:
         config = LMConfig()
     if problem.model == "pinhole":
@@ -320,8 +334,102 @@ def solve(problem: BAProblem, config: LMConfig | None = None, *,
     elif problem.model != "bal":
         raise ValueError(f"solve() handles the 'bal' and 'pinhole' models; got {problem.model!r}")
     check_config(config)
+    if resume_from:
+        if init_state is not None:
+            raise ValueError("pass init_state or resume_from, not both")
+        problem, init_state = _resume_state(problem, resume_from)
     plans, pairs = build_solver_plans(problem, config)
+    chunk = config.checkpoint_every if config.checkpoint_every > 0 else (
+        8 if config.nan_guard else 0)
+    if chunk > 0:
+        return _solve_chunked(problem, config, plans, pairs, init_state, chunk)
     return lm_loop(problem.cameras, problem.points, problem.obs_2d, problem.cam_idx,
                    problem.pt_idx, problem.mask, problem.cameras.shape[0],
                    problem.points.shape[0], config, plans=plans,
                    init_state=init_state, pairs=pairs)
+
+
+def _resume_state(problem: BAProblem, path: str):
+    """The problem at a checkpoint's parameters and the checkpoint's
+    trust-region state (λ, ν, iteration, warm-start step, g₀); ν, the
+    warm-start step and g₀ default to 2, zeros and 0 where the checkpoint
+    lacks them, as the reference's do."""
+    ck = load_checkpoint(path)
+    dt, dev = problem.cameras.dtype, problem.device
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), device=dev).to(dt)
+
+    problem = problem.with_params(t(ck["cameras"]), t(ck["points"]))
+    ex = ck["extra_tensors"]
+    nu = float(np.asarray(ex.get("nu", 2.0)))
+    warm = t(ex["warm_dxc"]) if "warm_dxc" in ex else torch.zeros_like(problem.cameras)
+    gnorm0 = float(np.asarray(ex.get("gnorm0", 0.0)))
+    return problem, (ck["lam"], nu, ck["iteration"], warm, gnorm0)
+
+
+def _solve_chunked(problem: BAProblem, config: LMConfig, plans, pairs, init_state,
+                   chunk: int) -> LMResult:
+    """Run ``lm_loop`` ``chunk`` iterations at a time over plans built once.
+    Between chunks: with ``nan_guard``, a line for a non-finite state; with
+    ``checkpoint_every`` and ``checkpoint_path``, a dump of the whole loop
+    state (parameters, λ, ν, iteration, warm-start step, g₀). Stops when
+    converged, at ``max_iters``, or when a chunk makes no progress. The
+    histories are spliced from the chunks and the accepted counts summed, so
+    the result is the uninterrupted solve's."""
+    M = config.max_iters
+    it = int(init_state[2]) if init_state is not None else 0
+    state = init_state
+    cams, pts = problem.cameras, problem.points
+    hist = lam_hist = cg_hist = initial_cost = None
+    accepted = 0
+    dump = config.checkpoint_every > 0 and bool(config.checkpoint_path)
+    while True:
+        res = lm_loop(cams, pts, problem.obs_2d, problem.cam_idx, problem.pt_idx, problem.mask,
+                      problem.cameras.shape[0], problem.points.shape[0], config, plans=plans,
+                      init_state=state, pairs=pairs, stop_at=it + chunk)
+        finite = (torch.isfinite(res.cost) & torch.isfinite(res.cameras).all()
+                  & torch.isfinite(res.points).all())
+        host_reads["state"] += 1          # one transfer, as f64
+        it_new, converged, cost, lam, finite = torch.stack(
+            [v.to(torch.float64) for v in (res.iterations, res.converged, res.cost, res.lam,
+                                           finite)]).tolist()
+        it_new = int(it_new)
+        if hist is None:
+            hist, lam_hist, cg_hist = (res.cost_history.clone(), res.lam_history.clone(),
+                                       res.cg_history.clone())
+            initial_cost = res.initial_cost
+        else:   # this chunk's slots; the cost history forward-filled from it
+            hist[it:] = res.cost_history[it:]
+            lam_hist[it:it_new] = res.lam_history[it:it_new]
+            cg_hist[it:it_new] = res.cg_history[it:it_new]
+        accepted = accepted + res.accepted
+        if config.nan_guard and not finite:
+            print(f"[tpu-ba nan-guard] non-finite state at iteration {it_new} "
+                  f"(cost={cost:.6g}, lambda={lam:.3g})", flush=True)
+        if dump:
+            save_result(config.checkpoint_path, res)
+        if converged or it_new >= M or it_new <= it:
+            break
+        it = it_new
+        state = (res.lam, res.nu, it_new, res.warm_dxc, res.gnorm0)
+        cams, pts = res.cameras, res.points
+    return dataclasses.replace(res, initial_cost=initial_cost, accepted=accepted,
+                               cost_history=hist, lam_history=lam_hist, cg_history=cg_hist)
+
+
+def save_result(path: str, res: LMResult) -> None:
+    """Checkpoint ``res``'s whole loop state (parameters, λ, ν, iteration,
+    warm-start step, g₀) into the directory ``path``, copied to the host in
+    one transfer: a solve resumed from it continues ``res``'s trajectory."""
+    dt = res.cameras.dtype
+    parts = (res.cameras, res.points, res.warm_dxc, res.lam, res.nu, res.gnorm0, res.cost,
+             res.iterations)
+    host_reads["state"] += 1
+    flat = torch.cat([p.reshape(-1).to(dt) for p in parts]).cpu().numpy()
+    cams, pts, warm, rest = np.split(flat, np.cumsum([p.numel() for p in parts[:3]]))
+    lam, nu, gnorm0, cost, iteration = rest.tolist()
+    save_checkpoint(path, cameras=cams.reshape(res.cameras.shape),
+                    points=pts.reshape(res.points.shape), lam=lam, iteration=int(iteration),
+                    cost=cost, extra={"nu": np.asarray(nu), "gnorm0": np.asarray(gnorm0),
+                                      "warm_dxc": warm.reshape(res.warm_dxc.shape)})

@@ -3,7 +3,8 @@
 Counterpart of ``tpu_ba/solver/pcg.py``. PyTorch has no device-side while
 loop, so the loop runs on the host over device tensors and reads one flag to
 the host per iteration: ``rᵀr > tol²·max(‖b‖², 1e-30)`` and no breakdown.
-``host_reads`` counts those reads (and the LM loop's, see ``lm.py``).
+``host_reads`` counts those reads (and the LM loop's and the chunked
+solve's, see ``lm.py``).
 
 Breakdown contract: pᵀAp ≤ 0 (A not positive definite at this damping) or
 rᵀz ≤ 0 (the preconditioner is not) freezes the iterate, flags not-ok and
@@ -15,8 +16,9 @@ from __future__ import annotations
 import torch
 
 # device→host reads since the last reset: "cg" per CG iteration test,
-# "lm" per λ-retry (accept / λ ceiling / done)
-host_reads = {"cg": 0, "lm": 0}
+# "lm" per λ-retry (accept / λ ceiling / done), "state" per read of the loop
+# state at a resumed solve's or a chunk's boundary
+host_reads = {"cg": 0, "lm": 0, "state": 0}
 
 
 def reset_host_reads() -> None:
