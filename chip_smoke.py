@@ -168,6 +168,12 @@ PATHS = (
 )
 VENICE_KERNELS = ("segsum", "linearize", "cost", "pairblocks")
 GOLDENS = os.path.join(HERE, "data", "goldens")
+# the pose graph's ring ("thousands of nodes at most", tpu_ba/posegraph/solver.py)
+# and config 4 of the SfM front end (scripts/sfm_sequence_bench.py)
+PG_NODES = 2000
+SFM_FRAMES, SFM_POINTS, SFM_SEED = 60, 600, 4
+# config 4's bar: the reference registered 60/60 at 0.90 px and ATE 0.080 (sfm_bench.json)
+SFM_MIN_FRAMES, SFM_MAX_RMSE_PX, SFM_MAX_ATE = 57, 2.0, 0.25
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # bytes/s and f32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -463,6 +469,239 @@ def phase_resume(torch, problem, full, cfg, golden, kernels):
                       f"solve, {t['cli_s']:.3f} s the whole process; metrics end in lm_solve; "
                       f"the saved scene reloads equal")
         print("[resume] timings " + json.dumps(t), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def pose_graph_ring(torch, n, dev):
+    """The posegraph command line's ring of ``n`` nodes (its draws, in
+    order), built in one batch on ``dev``: (init, ei, ej, meas)."""
+    import numpy as np
+
+    from tpu_ba_torch.geometry.se3 import se3_compose, se3_exp, se3_relative
+
+    rng = np.random.default_rng(0)
+    ang = 2 * np.pi * np.arange(n) / n
+    z = np.zeros(n)
+    gt = np.stack([z, ang, z, np.cos(ang), z, np.sin(ang)], axis=1)
+    ei = np.r_[np.arange(1, n), 0].astype(np.int32)
+    ej = np.r_[np.arange(0, n - 1), n - 1].astype(np.int32)
+    noise = 0.03 * rng.standard_normal((n, 6))
+    gt_t = torch.as_tensor(gt, device=dev)
+    meas = se3_compose(se3_exp(torch.as_tensor(noise, device=dev)),
+                       se3_relative(gt_t[ei], gt_t[ej]))
+    init = gt + 0.1 * rng.standard_normal(gt.shape)
+    init[0] = gt[0]
+    return torch.as_tensor(init, device=dev), ei, ej, meas
+
+
+def phase_posegraph(torch):
+    """``python -m tpu_ba_torch.cli posegraph`` on a ring of ``PG_NODES``
+    nodes as a subprocess, then the same ring through the library, solved
+    twice: the cost must fall below 0.1 × the initial cost and the repeat
+    give the same nodes, cost and iterations bit for bit; LM it/s."""
+    from tpu_ba_torch.posegraph import pose_graph_cost, solve_pose_graph
+
+    dev = torch.device("cuda")
+    cmd = [sys.executable, "-m", "tpu_ba_torch.cli", "posegraph", "--nodes", str(PG_NODES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)} exited {proc.returncode}:\n{proc.stderr}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not (out["final_cost"] < 0.1 * out["initial_cost"] and out["device"] == "cuda"):
+        raise AssertionError(f"the posegraph command line gave {out}")
+    say("posegraph", f"python -m tpu_ba_torch.cli posegraph --nodes {PG_NODES}: cost "
+                     f"{out['initial_cost']:.6f} -> {out['final_cost']:.6f} in "
+                     f"{out['iterations']} iterations; ring built edge by edge in "
+                     f"{out['build_s']:.3f} s, solved in {out['wall_s']:.3f} s, {cli_s:.3f} s "
+                     f"the whole process")
+
+    n = PG_NODES
+    init, ei, ej, meas = pose_graph_ring(torch, n, dev)
+    c0 = pose_graph_cost(init, ei, ej, meas).item()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nodes, cost, it = solve_pose_graph(init, ei, ej, meas)
+        c = cost.item()
+        runs.append((nodes, cost, it, time.perf_counter() - t0))
+        if not c < 0.1 * c0:
+            raise AssertionError(f"pose graph of {n} nodes: cost {c0} -> {c}")
+    (n1, c1, i1, s1), (n2, c2, i2, s2) = runs
+    if not (torch.equal(n1, n2) and torch.equal(c1, c2) and i1 == i2):
+        raise AssertionError(f"pose graph of {n} nodes: the repeat differs")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say("posegraph", f"library, ring of {n} nodes ({6 * n}x{6 * n} f64 H): cost {c0:.6f} -> "
+                     f"{c1.item():.6f} in {i1} iterations, {s1:.3f} s and {s2:.3f} s: LM it/s "
+                     f"{i1 / s1:.3f} and {i2 / s2:.3f}; the repeat equal bit for bit; the "
+                     f"command line's final cost {out['final_cost']:.9f}; peak device memory "
+                     f"{peak:.2f} GiB")
+
+
+def phase_sfm(torch):
+    """Config 4 on the card: a 60-frame rendered sequence through
+    ``run_incremental_sfm`` (``SfMConfig`` defaults, seed 4), twice; the
+    pose-graph drift recovery of scripts/sfm_sequence_bench.py on its result;
+    ``python -m tpu_ba_torch.cli sfm --out ...`` as a subprocess, whose BAL
+    file ``load_bal`` reads back."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from torch.autograd import DeviceType
+
+    import tpu_ba_torch.sfm.incremental as inc
+    from tpu_ba_torch.bench.ate import ate_rmse, camera_centers, rpe_stats
+    from tpu_ba_torch.geometry.se3 import se3_compose, se3_exp, se3_relative
+    from tpu_ba_torch.io.bal import load_bal
+    from tpu_ba_torch.io.sequences import render_blob_sequence
+    from tpu_ba_torch.kernels import _lib
+    from tpu_ba_torch.sfm.posegraph_bridge import refine_sfm_with_pose_graph
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    frames, gt = render_blob_sequence(n_frames=SFM_FRAMES, n_points=SFM_POINTS, seed=SFM_SEED,
+                                      device=dev)
+    say("sfm", f"rendered {SFM_FRAMES} frames of {SFM_POINTS} points ({frames.shape[1]}x"
+               f"{frames.shape[2]}) in {time.perf_counter() - t0:.3f} s")
+    K = gt["K"]
+    cfg = inc.SfMConfig(seed=SFM_SEED)
+
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    res = inc.run_incremental_sfm(frames, K, cfg, device=dev)
+    sfm_s = time.perf_counter() - t0
+    launched = {k: v for k, v in _lib.launches.items() if v}
+    if launched:
+        raise AssertionError(f"the SfM path launched kernels {launched}; it runs none")
+    rep = res.report
+    reg = res.registered
+    rmse_px = math.sqrt(2.0 * res.final_cost / max(rep["n_obs"], 1))
+    ate = ate_rmse(res.poses, gt["poses"], mask=reg)
+    rpe = rpe_stats(res.poses, gt["poses"], mask=reg)
+    say("sfm", f"config 4: {int(reg.sum())}/{SFM_FRAMES} registered, {rep['n_points']} map "
+               f"points, {rep['n_obs']} observations, reprojection RMSE {rmse_px:.4f} px, ATE "
+               f"RMSE {ate['ate_rmse']:.5f} (scale {ate['align_scale']:.4f}), RPE mean "
+               f"{rpe['rpe_mean']:.5f} max {rpe['rpe_max']:.5f}; {sfm_s:.3f} s")
+    say("sfm", "stage seconds " + json.dumps(rep["stage_s"]))
+    say("sfm", "stage split " + json.dumps(rep["stage_split"]))
+    if not (reg.sum() >= SFM_MIN_FRAMES and rmse_px < SFM_MAX_RMSE_PX
+            and ate["ate_rmse"] < SFM_MAX_ATE):
+        raise AssertionError(f"config 4 below its bar ({SFM_MIN_FRAMES} frames, "
+                             f"{SFM_MAX_RMSE_PX} px, ATE {SFM_MAX_ATE}): {int(reg.sum())}, "
+                             f"{rmse_px}, {ate['ate_rmse']}")
+
+    # the repeat, with each windowed BA timed on the host clock and every
+    # tenth also under torch.profiler (device time: kernel and memcpy events)
+    orig = inc._bundle_adjust
+    calls = []
+
+    def timed_ba(poses, points, obs_f, obs_p, obs_xy, K, frames, iters, *rest):
+        args = (poses, points, obs_f, obs_p, obs_xy, K, frames, iters, *rest)
+        profiled = len(calls) % 10 == 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if profiled:
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                out = orig(*args)
+                torch.cuda.synchronize()
+            device_s = 1e-6 * sum(e.device_time_total for e in prof.events()
+                                  if e.device_type == DeviceType.CUDA)
+        else:
+            out = orig(*args)
+            torch.cuda.synchronize()
+            device_s = None
+        calls.append((iters == cfg.ba_iters, time.perf_counter() - t0, device_s))
+        return out
+
+    inc._bundle_adjust = timed_ba
+    try:
+        t0 = time.perf_counter()
+        res2 = inc.run_incremental_sfm(frames, K, cfg, device=dev)
+        sfm2_s = time.perf_counter() - t0
+    finally:
+        inc._bundle_adjust = orig
+    same = (np.array_equal(res.poses, res2.poses) and np.array_equal(res.points, res2.points)
+            and np.array_equal(res.track_point, res2.track_point)
+            and res.final_cost == res2.final_cost)
+    say("sfm", f"repeat: {int(res2.registered.sum())} registered, {res2.report['n_points']} "
+               f"points, {res2.report['n_obs']} observations, final cost "
+               f"{res2.final_cost:.6f} (first {res.final_cost:.6f}); bits match: {same}; "
+               f"{sfm2_s:.3f} s with the windowed BAs timed")
+    win = [c for c in calls if c[0]]
+    plain = [w for _, w, d in win if d is None]
+    prof = [(w, d) for _, w, d in win if d is not None]
+    med_wall = statistics.median(plain)
+    med_dev = statistics.median(d for _, d in prof)
+    say("sfm", f"windowed BA: {len(win)} calls, median {1e3 * med_wall:.3f} ms a call on the host "
+               f"clock (unprofiled calls), device {1e3 * med_dev:.3f} ms a call (median of "
+               f"{len(prof)} profiled: {[round(1e3 * d, 3) for _, d in prof]} ms, under the "
+               f"profiler {[round(1e3 * w, 3) for w, _ in prof]} ms): device busy "
+               f"{100 * med_dev / med_wall:.2f}%, host {100 - 100 * med_dev / med_wall:.2f}%; "
+               f"final BA rounds {[round(w, 3) for f, w, _ in calls if not f]} s")
+
+    # pose-graph drift recovery (scripts/sfm_sequence_bench.py): a random-walk
+    # drift injected into the trajectory, the pre-drift relative poses of two
+    # loop-closure edges distributed by the pose graph
+    t0 = time.perf_counter()
+    reg_idx = np.where(reg)[0]
+    f0, fl = int(reg_idx[0]), int(reg_idx[-1])
+    fm = int(reg_idx[len(reg_idx) // 2])
+    rng = np.random.default_rng(11)
+    drifted = res.poses.copy()
+    xi = np.zeros(6)
+    host = torch.as_tensor
+    for i in reg_idx[2:]:                 # keep the gauge-defining pair
+        xi = xi + np.concatenate([rng.normal(0, 0.120, 3), rng.normal(0, 0.010, 3)])
+        drifted[i] = se3_compose(se3_exp(host(xi)), host(res.poses[i])).numpy()
+    z_loop = se3_relative(host(res.poses[fl]), host(res.poses[f0])).numpy()
+    z_mid = se3_relative(host(res.poses[fm]), host(res.poses[f0])).numpy()
+    res_rec, pg_cost, pg_iters = refine_sfm_with_pose_graph(
+        dataclasses.replace(res, poses=drifted), extra_edges=[(fl, f0, z_loop), (fm, f0, z_mid)],
+        device=dev)
+    base_c = camera_centers(res.poses)[reg_idx]
+
+    def rmse_vs_base(poses):
+        d = camera_centers(poses)[reg_idx] - base_c
+        return float(np.sqrt(np.mean(np.sum(d * d, axis=1))))
+
+    drift_rmse, rec_rmse = rmse_vs_base(drifted), rmse_vs_base(res_rec.poses)
+    ate_d = ate_rmse(drifted, gt["poses"], mask=reg)["ate_rmse"]
+    ate_r = ate_rmse(res_rec.poses, gt["poses"], mask=reg)["ate_rmse"]
+    say("sfm", f"drift recovery: center RMSE vs the pre-drift trajectory {drift_rmse:.5f} -> "
+               f"{rec_rmse:.5f} ({pg_iters} pose-graph iterations, loop edges {fl}->{f0}, "
+               f"{fm}->{f0}); Umeyama ATE {ate_d:.5f} -> {ate_r:.5f}; "
+               f"{time.perf_counter() - t0:.3f} s")
+    if not rec_rmse < drift_rmse:
+        raise AssertionError(f"drift recovery did not recover: {drift_rmse} -> {rec_rmse}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sfm_")
+    try:
+        bal = os.path.join(tmp, "scene.txt")
+        cmd = [sys.executable, "-m", "tpu_ba_torch.cli", "sfm", "--out", bal]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd)} exited {proc.returncode}:\n{proc.stderr}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        prob = load_bal(bal, device=dev)
+        finite = all(bool(torch.isfinite(t).all()) for t in (prob.cameras, prob.points,
+                                                             prob.obs_2d))
+        if not ((prob.n_cameras, prob.n_points, prob.n_obs) == (
+                out["registered_frames"], out["n_points"], out["n_obs"]) and finite
+                and out["device"] == "cuda"):
+            raise AssertionError(f"cli sfm gave {out}; load_bal read {prob.n_cameras} cameras, "
+                                 f"{prob.n_points} points, {prob.n_obs} observations")
+        say("sfm", f"python -m tpu_ba_torch.cli sfm --out ...: {out['registered_frames']} "
+                   f"registered, {out['n_points']} points, {out['n_obs']} observations, "
+                   f"{out['rmse_px']:.4f} px; load_bal reads the BAL file back with those "
+                   f"counts; {cli_s:.3f} s the whole process")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1552,6 +1791,12 @@ def main() -> int:
     v_launches, v_fig, _ = run_path(vp, "venice-1778-community schur_sparse_pallas", vcfg,
                                  VENICE_KERNELS, vgold, False)
     del vp
+
+    # the pose graph and the SfM front end: plain PyTorch, no kernel
+    for name, phase in (("posegraph", phase_posegraph), ("sfm", phase_sfm)):
+        t0 = time.perf_counter()
+        phase(torch)
+        say(name, f"phase wall time {time.perf_counter() - t0:.3f} s")
 
     # max_rel_err is the number held to its tolerance; max_abs_err is in the
     # outputs' own units (K2's U entries reach ~4e11, so its absolute error is

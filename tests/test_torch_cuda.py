@@ -1269,3 +1269,151 @@ def test_autodiff_blocks_on_the_card(dev):
     for g, a in zip(jacobian_blocks_bal_autodiff(*args), jacobian_blocks_bal(*args)):
         assert g.device == a.device and g.shape == a.shape
         assert _rel_err(g, a) <= 1e-10
+
+
+# ---- the pose graph and the SfM front end: plain PyTorch on the card against
+# the same functions on the CPU, on the same inputs (f64 unless stated)
+
+
+def _ring(n, seed=0, noise=0.03):
+    """The posegraph command line's ring, its draws in one batch."""
+    from tpu_ba_torch.geometry.se3 import se3_compose, se3_exp, se3_relative
+
+    rng = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(n) / n
+    z = np.zeros(n)
+    gt = torch.as_tensor(np.stack([z, ang, z, np.cos(ang), z, np.sin(ang)], axis=1))
+    ei = np.r_[np.arange(1, n), 0].astype(np.int32)
+    ej = np.r_[np.arange(0, n - 1), n - 1].astype(np.int32)
+    meas = se3_compose(se3_exp(torch.as_tensor(noise * rng.standard_normal((n, 6)))),
+                       se3_relative(gt[ei], gt[ej]))
+    init = gt.numpy() + 0.1 * rng.standard_normal((n, 6))
+    init[0] = gt[0].numpy()
+    return init, ei, ej, meas.numpy()
+
+
+def test_se3_and_pose_graph_on_the_card(dev):
+    from tpu_ba_torch.geometry import se3
+    from tpu_ba_torch.posegraph import solve_pose_graph
+
+    rng = np.random.default_rng(3)
+    g = torch.as_tensor(np.concatenate([rng.normal(0, 1.0, (64, 3)), rng.normal(0, 1, (64, 3))],
+                                       axis=1))
+    g[:4, 0:3] *= 1e-8                                  # the small-angle branches
+    h = g.flip(0)
+    for name, args in (("se3_exp", (g,)), ("se3_log", (g,)), ("se3_inverse", (g,)),
+                       ("se3_compose", (g, h)), ("se3_relative", (g, h))):
+        fn = getattr(se3, name)
+        out = fn(*(a.to(dev) for a in args))
+        assert _rel_err(out.cpu(), fn(*args)) <= 1e-12, name
+    init, ei, ej, meas = _ring(60)
+    ref_nodes, ref_cost, ref_it = solve_pose_graph(init, ei, ej, meas, device="cpu")
+    nodes, cost, it = solve_pose_graph(init, ei, ej, meas)            # the card by default
+    assert nodes.device == torch.ones(1, device=dev).device and it == ref_it
+    assert (nodes.cpu() - ref_nodes).abs().max().item() <= 1e-9
+    assert abs(cost.item() - ref_cost.item()) <= 1e-9 * ref_cost.item()
+    again = solve_pose_graph(init, ei, ej, meas, device=dev)
+    assert torch.equal(again[0], nodes) and torch.equal(again[1], cost)
+
+
+@pytest.fixture
+def sfm_frames():
+    from tpu_ba_torch.io.sequences import render_blob_sequence
+
+    frames, gt = render_blob_sequence(n_frames=5, n_points=120, seed=4, device="cpu")
+    return frames, gt
+
+
+def test_render_on_the_card(dev, sfm_frames):
+    from tpu_ba_torch.io.sequences import render_blob_sequence
+
+    frames, gt = render_blob_sequence(n_frames=5, n_points=120, seed=4, device=dev)
+    # f32 exp, sin and cos differ by ulps between the card and the CPU: a
+    # pixel moves by its gradient times the projected shift (2.8e-5 measured
+    # between the reference and the port at this size)
+    assert np.abs(frames - sfm_frames[0]).max() <= 1e-4
+    assert np.array_equal(gt["poses"], sfm_frames[1]["poses"])
+
+
+def test_harris_and_matching_on_the_card_keep_the_tie_order(dev, sfm_frames):
+    """More slots than peaks: the −∞ slots come in index order on the card
+    as on the CPU (a stable sort, not ``torch.topk``)."""
+    from tpu_ba_torch.sfm.features import describe_patches, detect_harris, top_k_stable
+    from tpu_ba_torch.sfm.matching import match_descriptors
+
+    x = torch.tensor([1.0, -np.inf, 3.0, 3.0, -np.inf, 2.0, -np.inf] * 300)
+    assert torch.equal(top_k_stable(x.to(dev), 600)[1].cpu(), top_k_stable(x, 600)[1])
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        feats = []
+        for img in sfm_frames[0][:2]:
+            im = torch.as_tensor(img, dtype=torch.float64, device=d)
+            xy, sc = detect_harris(im, max_corners=1024)
+            feats.append((xy, sc, describe_patches(im, xy)))
+        (_, s1, d1), (_, s2, d2) = feats
+        out[d.type] = feats, match_descriptors(d1, d2, s1, s2)
+    (gpu, (gi, gv)), (cpu, (ci, cv)) = out[dev.type], out["cpu"]
+    for (gxy, gsc, gd), (cxy, csc, cd) in zip(gpu, cpu):
+        fin = torch.isfinite(csc)
+        assert 0 < int(fin.sum()) < 1024
+        assert torch.equal(torch.isfinite(gsc).cpu(), fin)
+        assert _rel_err(gsc.cpu()[fin], csc[fin]) <= 1e-12
+        assert (gxy.cpu() - cxy).abs().max().item() <= 1e-9
+        assert (gd.cpu() - cd).abs().max().item() <= 1e-9
+    assert torch.equal(gi.cpu(), ci) and torch.equal(gv.cpu(), cv) and int(cv.sum()) > 20
+
+
+def test_ransacs_on_the_card_given_the_same_index_sets(dev):
+    from tpu_ba_torch.geometry.rotations import aa_to_matrix
+    from tpu_ba_torch.sfm import pnp, twoview
+
+    rng = np.random.default_rng(5)
+    n = 200
+    X = np.stack([rng.uniform(-2, 2, n), rng.uniform(-2, 2, n), rng.uniform(4, 8, n)], -1)
+    R = aa_to_matrix(torch.tensor([0.03, -0.05, 0.02], dtype=torch.float64)).numpy()
+    t = np.array([0.6, 0.1, 0.05])
+    x1 = X[:, 0:2] / X[:, 2:3]
+    Xc = X @ R.T + t
+    x2 = Xc[:, 0:2] / Xc[:, 2:3] + 1e-4 * rng.standard_normal((n, 2))
+    x2[:15] += rng.normal(0, 0.05, (15, 2))
+    valid = np.ones(n, bool)
+    valid[-6:] = False
+    cpu = torch.device("cpu")
+    T = {d: (lambda a, d=d: torch.as_tensor(a, device=d)) for d in (dev, cpu)}
+    # the sampler draws on the CPU, so a seed gives the same sets on any device
+    idx8 = {d: twoview.sample_index_sets(torch.Generator().manual_seed(1), T[d](valid), 512, 8)
+            for d in T}
+    assert torch.equal(idx8[dev].cpu(), idx8[cpu])
+    E = {d: twoview.essential_from_samples(idx8[d], T[d](x1), T[d](x2), T[d](valid),
+                                           inlier_thresh=1e-6) for d in T}
+    assert int(E[dev][2]) == int(E[cpu][2]) > 150
+    assert torch.equal(E[dev][1].cpu(), E[cpu][1])
+    s = torch.sign(torch.sum(E[dev][0].cpu() * E[cpu][0]))
+    assert (s * E[dev][0].cpu() - E[cpu][0]).abs().max().item() <= 1e-9
+    idx6 = twoview.sample_index_sets(torch.Generator().manual_seed(2), T[cpu](valid), 256, 6)
+    P = {d: pnp.pnp_from_samples(idx6.to(d), T[d](Xc), T[d](x2), T[d](valid),
+                                 inlier_thresh=1e-6) for d in T}
+    assert int(P[dev][3]) == int(P[cpu][3]) > 150
+    assert torch.equal(P[dev][2].cpu(), P[cpu][2])
+    for a, b in zip(P[dev][:2], P[cpu][:2]):
+        assert (a.cpu() - b).abs().max().item() <= 1e-9
+
+
+def test_short_incremental_sfm_on_the_card(dev, sfm_frames):
+    """5 frames on the card and on the CPU, f32 as the pipeline runs. The
+    random draws are the CPU generator's on both. The decisions before the
+    first BA are the same; after it the f32 solves (whose plain segment sums
+    add with atomics on the card) differ in rounding."""
+    from tpu_ba_torch.sfm.incremental import SfMConfig, run_incremental_sfm
+
+    frames, gt = sfm_frames
+    cfg = SfMConfig(max_corners=128, ransac_hypotheses=256, ba_iters=3, final_ba_iters=5)
+    card = run_incremental_sfm(frames, gt["K"], cfg, device=dev)
+    cpu = run_incremental_sfm(frames, gt["K"], cfg, device="cpu")
+    for k in ("init_inliers", "init_points", "registered_frames"):
+        assert card.report[k] == cpu.report[k], (k, card.report[k], cpu.report[k])
+    assert card.report["registered_frames"] == 5
+    for k in ("n_points", "n_obs"):
+        assert abs(card.report[k] - cpu.report[k]) <= 0.02 * cpu.report[k], k
+    assert abs(card.final_cost - cpu.final_cost) <= 1e-2 * cpu.final_cost
+    assert np.sqrt(2 * card.final_cost / card.report["n_obs"]) < 2.0

@@ -16,6 +16,7 @@ from tpu_ba_torch.core import (LMConfig, make_problem, problem_from_numpy,
                                problem_to_numpy)
 from tpu_ba_torch.io.bal import make_bal_like_problem
 from tpu_ba_torch.io.synthetic import make_synthetic_problem
+from tpu_ba_torch.posegraph import solve_pose_graph
 from tpu_ba_torch.solver.lm import solve
 
 # one intra-op thread: the suite runs in parallel worker processes, and
@@ -39,6 +40,12 @@ MODULES = [
     "tpu_ba_torch.checkpoint", "tpu_ba_torch.checkpoint.state", "tpu_ba_torch.io.native",
     "tpu_ba_torch.io.scene", "tpu_ba_torch.bench", "tpu_ba_torch.bench.metrics",
     "tpu_ba_torch.jacobians", "tpu_ba_torch.jacobians.autodiff", "tpu_ba_torch.viz",
+    "tpu_ba_torch.geometry", "tpu_ba_torch.geometry.se3", "tpu_ba_torch.residuals",
+    "tpu_ba_torch.io", "tpu_ba_torch.io.sequences", "tpu_ba_torch.solver",
+    "tpu_ba_torch.posegraph", "tpu_ba_torch.posegraph.solver", "tpu_ba_torch.bench.ate",
+    "tpu_ba_torch.sfm", "tpu_ba_torch.sfm.features", "tpu_ba_torch.sfm.matching",
+    "tpu_ba_torch.sfm.triangulate", "tpu_ba_torch.sfm.twoview", "tpu_ba_torch.sfm.pnp",
+    "tpu_ba_torch.sfm.incremental", "tpu_ba_torch.sfm.posegraph_bridge",
 ]
 
 
@@ -127,7 +134,47 @@ def _entry_points():
                  pt_idx=[0, 1, 1, 2], mask=[True] * 4), n_cameras=2, n_points=3, n_obs=4, **kw),
         "make_synthetic_problem": lambda **kw: make_synthetic_problem(4, 10, **kw)[0],
         "make_bal_like_problem": lambda **kw: make_bal_like_problem("ladybug-49", **kw)[0],
+        "solve_pose_graph": lambda **kw: solve_pose_graph(
+            z((3, 6)), [1, 2], [0, 1], z((2, 6)), max_iters=1, **kw)[0],
     }
+
+
+def _host_entry_points():
+    """Entry points that return numpy: the device shows only in where they run."""
+    from tpu_ba_torch.io.sequences import render_blob_sequence
+    from tpu_ba_torch.sfm.incremental import SfMConfig, SfMResult, run_incremental_sfm
+    from tpu_ba_torch.sfm.posegraph_bridge import refine_sfm_with_pose_graph
+
+    def sfm(**kw):
+        frames, gt = render_blob_sequence(n_frames=3, n_points=100, H=120, W=160, fx=140.0,
+                                          fy=140.0, seed=1, device="cpu")
+        return run_incremental_sfm(frames, gt["K"], SfMConfig(max_corners=128,
+                                                              ransac_hypotheses=64, ba_iters=1,
+                                                              final_ba_iters=1), **kw)
+
+    def bridge(**kw):
+        res = SfMResult(poses=np.zeros((3, 6)), points=np.zeros((1, 3)), track_frame=np.zeros(1),
+                        track_point=np.zeros(1), track_xy=np.zeros((1, 2)),
+                        registered=np.ones(3, bool), final_cost=0.0, report={})
+        return refine_sfm_with_pose_graph(res, max_iters=1, **kw)
+
+    return {
+        "render_blob_sequence": lambda **kw: render_blob_sequence(n_frames=1, n_points=5, H=24,
+                                                                  W=32, **kw),
+        "run_incremental_sfm": sfm,
+        "refine_sfm_with_pose_graph": bridge,
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_host_entry_points()))
+def test_host_result_entry_points_default_to_the_card(name):
+    """Entry points whose results are numpy arrays also run on the card by
+    default: without one they raise before any work, ``device="cpu"`` runs."""
+    call = _host_entry_points()[name]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    call(device="cpu")
 
 
 @pytest.mark.parametrize("name", sorted(_entry_points()))
@@ -153,6 +200,17 @@ def test_cli_default_device_raises_without_a_card():
         pytest.skip("this machine has CUDA")
     with pytest.raises(RuntimeError, match='device="cpu"'):
         main(["ba", "--problem", "synthetic", "--max-iters", "1"])
+
+
+@pytest.mark.parametrize("argv", [["sfm", "--frames", "2", "--points", "10"],
+                                  ["posegraph", "--nodes", "4"]])
+def test_cli_subcommands_default_device_raises_without_a_card(argv):
+    from tpu_ba_torch.cli import main
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        main(argv)
 
 
 def test_f32_ladybug49_within_1pct_of_f64_golden(tmp_path, monkeypatch):

@@ -72,7 +72,7 @@ def test_pcr_factor_and_apply_match_reference_and_dense_solve(C, dc):
     np.testing.assert_allclose(z, np.linalg.solve(M, r.reshape(-1)).reshape(C, dc), rtol=1e-8,
                                atol=1e-10)
     # the reference's factors, carried over as numpy, through the port's apply
-    carried = port_tridiag.tridiag_from_numpy(*(np.asarray(a) for a in ref))
+    carried = port_tridiag.tridiag_from_numpy(*(np.asarray(a) for a in ref), device="cpu")
     np.testing.assert_allclose(port_tridiag.pcr_apply(*carried, torch.tensor(r)).numpy(), z,
                                rtol=1e-12, atol=1e-14)
 
@@ -106,7 +106,8 @@ def test_shifts_and_a_single_camera():
 def test_factor_t_matches_reference_layout():
     D, B, _ = _random_spd_tridiag(7, 9, seed=2)
     ref = ref_tridiag.pcr_factor(jnp.asarray(D), jnp.asarray(B))
-    out = port_tridiag.factor_t(*port_tridiag.tridiag_from_numpy(*(np.asarray(a) for a in ref)),
+    out = port_tridiag.factor_t(*port_tridiag.tridiag_from_numpy(*(np.asarray(a) for a in ref),
+                                                               device="cpu"),
                                 128)
     for a, b in zip(out, ref_tridiag.factor_t(*ref, 128)):
         assert a.dtype == torch.float32 and a.is_contiguous()
@@ -133,7 +134,7 @@ def ladybug49():
     return dict(plan=plan, pp=plan_to_port(plan), blk=blk, Ul=Ul, Minv=Minv, b=b, pcr=pcr,
                 diag_S=diag_S, blk_t=t(blk), Ul_t=t(Ul), Minv_t=t(Minv), b_t=t(b),
                 pcr_t=port_tridiag.tridiag_from_numpy(*(np.asarray(a) for a in pcr),
-                                                      dtype=torch.float32))
+                                                      dtype=torch.float32, device="cpu"))
 
 
 def test_tridiag_from_band_and_factor_match_reference_on_a_real_band(ladybug49):

@@ -1,14 +1,17 @@
-"""Command line: bundle-adjust a BAL problem with the PyTorch port.
+"""Command line of the PyTorch port: bundle adjustment, SfM, pose graph.
 
 Usage:
     python -m tpu_ba_torch.cli ba --problem ladybug-1723 --solver schur_sparse_pallas
     python -m tpu_ba_torch.cli ba --bal-file problem.txt --checkpoint ck --checkpoint-every 20
     python -m tpu_ba_torch.cli ba --resume ck --bal-file problem.txt --max-iters 80
     python -m tpu_ba_torch.cli ba --problem synthetic --max-iters 8 --device cpu
+    python -m tpu_ba_torch.cli sfm --frames 8 --points 300 --out scene.txt
+    python -m tpu_ba_torch.cli posegraph --nodes 50 --noise 0.03
 
-Prints one JSON line with the result. Only the ``ba`` subcommand is ported;
-the reference's other subcommands (``tpu_ba/cli.py``) and its sharded run
-follow in later work.
+Each prints one JSON line with its result and runs on the CUDA card unless
+``--device`` names another. The reference's ``bench`` subcommand
+(``tpu_ba/cli.py``, which runs ``bench.py``) and its sharded run are not
+ported.
 """
 
 from __future__ import annotations
@@ -18,6 +21,12 @@ import json
 import math
 import sys
 import time
+
+
+def _add_device(p):
+    p.add_argument("--device", default=None,
+                   help="torch device; default: the CUDA card (fails without one), "
+                        "cpu to run on the CPU")
 
 
 def _add_ba(sub):
@@ -40,9 +49,7 @@ def _add_ba(sub):
                         "PCR-factored block-tridiagonal inverse (banded plans)")
     p.add_argument("--robust", choices=["none", "huber", "cauchy", "arctan"], default="none")
     p.add_argument("--robust-scale", type=float, default=2.0)
-    p.add_argument("--device", default=None,
-                   help="torch device; default: the CUDA card (fails without one), "
-                        "cpu to run on the CPU")
+    _add_device(p)
     p.add_argument("--metrics", default=None, help="JSONL metrics output path")
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint dir to write at the end of the solve")
@@ -58,6 +65,27 @@ def _add_ba(sub):
                    help="write cost/lambda/CG-history plot (PNG)")
     p.add_argument("--plot-reproj", default=None,
                    help="write a reprojection overlay for camera 0 (PNG)")
+
+
+def _add_sfm(sub):
+    p = sub.add_parser("sfm", help="incremental SfM on an image sequence")
+    p.add_argument("--sequence", default=None,
+                   help="TUM or KITTI sequence dir (synthetic render if omitted)")
+    p.add_argument("--format", choices=["tum", "kitti"], default="tum")
+    p.add_argument("--frames", type=int, default=8)
+    p.add_argument("--points", type=int, default=300)
+    p.add_argument("--max-frames", type=int, default=None)
+    p.add_argument("--corners", type=int, default=512)
+    p.add_argument("--out", default=None, help="write resulting scene as BAL file")
+    _add_device(p)
+
+
+def _add_posegraph(sub):
+    p = sub.add_parser("posegraph", help="pose-graph refinement demo")
+    p.add_argument("--nodes", type=int, default=50)
+    p.add_argument("--noise", type=float, default=0.03)
+    p.add_argument("--max-iters", type=int, default=30)
+    _add_device(p)
 
 
 def cmd_ba(args) -> int:
@@ -136,12 +164,102 @@ def cmd_ba(args) -> int:
     return 0
 
 
+def cmd_sfm(args) -> int:
+    import numpy as np
+
+    from tpu_ba_torch.core import resolve_device
+    from tpu_ba_torch.sfm.incremental import SfMConfig, run_incremental_sfm
+
+    device = resolve_device(args.device)
+    if args.sequence:
+        if args.format == "tum":
+            from tpu_ba_torch.io.sequences import read_tum_sequence
+
+            frames, gt = read_tum_sequence(args.sequence, args.max_frames)
+        else:
+            from tpu_ba_torch.io.sequences import read_kitti_sequence
+
+            frames, gt = read_kitti_sequence(args.sequence, args.max_frames)
+        K = gt.get("K")
+        if K is None:
+            H, W = frames.shape[1:3]
+            K = (0.9 * W, 0.9 * W, W / 2.0, H / 2.0)  # rough default intrinsics
+    else:
+        from tpu_ba_torch.io.sequences import render_blob_sequence
+
+        frames, gt = render_blob_sequence(n_frames=args.frames, n_points=args.points,
+                                          device=device)
+        K = gt["K"]
+
+    res = run_incremental_sfm(frames, K, SfMConfig(max_corners=args.corners), device=device)
+    rmse = math.sqrt(2 * res.final_cost / max(res.report["n_obs"], 1))
+    print(json.dumps({**res.report, "final_cost": res.final_cost, "rmse_px": rmse,
+                      "device": str(device)}))
+
+    if args.out:
+        from tpu_ba_torch.core import make_problem
+        from tpu_ba_torch.io.bal import save_bal
+        from tpu_ba_torch.sfm.incremental import _to_bal_camera
+
+        fx, fy, cx, cy = K
+        reg = np.where(res.registered)[0]
+        fmap = {f: i for i, f in enumerate(reg)}
+        cams = np.stack([_to_bal_camera(res.poses[f, 0:3], res.poses[f, 3:6],
+                                        0.5 * (fx + fy)) for f in reg])
+        sel = np.isin(res.track_frame, reg)
+        ci = np.asarray([fmap[f] for f in res.track_frame[sel]], np.int32)
+        pi = res.track_point[sel].astype(np.int32)
+        uv = res.track_xy[sel] - np.array([cx, cy])
+        save_bal(args.out, make_problem(cams, res.points, uv, ci, pi, pad_multiple=1,
+                                        device=device))
+    return 0
+
+
+def cmd_posegraph(args) -> int:
+    import numpy as np
+    import torch
+
+    from tpu_ba_torch.core import resolve_device
+    from tpu_ba_torch.geometry.se3 import se3_compose, se3_exp, se3_relative
+    from tpu_ba_torch.posegraph import pose_graph_cost, solve_pose_graph
+
+    device = resolve_device(args.device)
+    t0 = time.time()
+    rng = np.random.default_rng(0)
+    n = args.nodes
+    gt = np.zeros((n, 6))
+    for i in range(n):
+        ang = 2 * np.pi * i / n
+        gt[i] = [0, ang, 0, np.cos(ang), 0, np.sin(ang)]
+    gt_t = torch.as_tensor(gt, device=device)
+    ei = np.r_[np.arange(1, n), 0].astype(np.int32)
+    ej = np.r_[np.arange(0, n - 1), n - 1].astype(np.int32)
+    meas = torch.stack([
+        se3_compose(se3_exp(torch.as_tensor(args.noise * rng.standard_normal(6), device=device)),
+                    se3_relative(gt_t[i], gt_t[j]))
+        for i, j in zip(ei, ej)])
+    init = gt + 0.1 * rng.standard_normal(gt.shape)
+    init[0] = gt[0]
+    init = torch.as_tensor(init, device=device)
+    c0 = float(pose_graph_cost(init, ei, ej, meas))
+    t1 = time.time()
+    nodes, cost, iters = solve_pose_graph(init, ei, ej, meas, max_iters=args.max_iters)
+    final = float(cost)
+    # build_s: the ring and its measurements, edge by edge as the reference builds them
+    print(json.dumps({"nodes": n, "initial_cost": c0, "final_cost": final,
+                      "iterations": int(iters), "device": str(device),
+                      "build_s": t1 - t0, "wall_s": time.time() - t1}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="tpu_ba_torch", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_ba(sub)
+    _add_sfm(sub)
+    _add_posegraph(sub)
     args = ap.parse_args(argv)
-    return {"ba": cmd_ba}[args.cmd](args)
+    return {"ba": cmd_ba, "sfm": cmd_sfm, "posegraph": cmd_posegraph}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -70,3 +70,14 @@ def robust_weight(kind: int, s, scale):
     if kind == ROBUST_ARCTAN:
         return 1.0 / (1.0 + (s / a2) ** 2)
     raise ValueError(f"unknown robust kind {kind}")
+
+
+def robust_cost(kind: int, r2d, scale, mask=None):
+    """Total robust cost ½ Σ ρ(|r_o|²) over observations.
+
+    r2d: (O, 2) per-observation residuals; mask: (O,) validity (padding).
+    """
+    rho = robust_rho(kind, torch.sum(r2d * r2d, dim=-1), scale)
+    if mask is not None:
+        rho = torch.where(mask, rho, torch.zeros_like(rho))
+    return 0.5 * torch.sum(rho)

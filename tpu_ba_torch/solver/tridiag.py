@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_ba_torch.core import resolve_device
 from tpu_ba_torch.solver.batched_linalg import inv_spd_small
 
 
@@ -122,9 +123,10 @@ def factor_t(P, Q, Dinv_fin, c_pad: int):
     return lanes(P, K * dc * dc), lanes(Q, K * dc * dc), lanes(Dinv_fin, dc * dc)
 
 
-def tridiag_from_numpy(P, Q, Dinv_fin, *, dtype=torch.float64, device="cpu"):
+def tridiag_from_numpy(P, Q, Dinv_fin, *, dtype=torch.float64, device=None):
     """(P, Q, Dinv_fin) given as numpy arrays (e.g. the reference's
     ``pcr_factor`` output) as the tensors ``pcr_apply`` and ``pcg_banded``
-    take."""
+    take, on ``device`` (default: the CUDA card, see ``resolve_device``)."""
+    device = resolve_device(device)
     return tuple(torch.as_tensor(np.array(a, order="C"), dtype=dtype, device=device)
                  for a in (P, Q, Dinv_fin))
