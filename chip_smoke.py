@@ -51,6 +51,21 @@ Phases, one line each (the end-to-end phase a few):
                20 --metrics ... --save-scene ... as a subprocess (the
                library's final cost, metrics ending in lm_solve, the scene
                reloading equal); its timings on one line;
+  sharded  — the same problem through "schur_sparse_pallas" on two ranks
+               (processes) sharing the card over gloo: the golden config
+               twice (within 1% of the golden, both ranks equal bit for bit,
+               K1, K2, K3, K4, K5 and K7 launched on each rank and K6 not),
+               8 iterations at λ₀ = 10 against the single-device solve (cost
+               rtol 1e-5, cameras rtol 1e-2 / atol 1e-3), the same on a 1-rank
+               NCCL group; LM it/s beside the single-device solve's, the W
+               all-gather's ms and the all-reduced bytes per λ-retry; with
+               two cards or more, NCCL a rank per card and the scaling table;
+  repeat   — K1's f64 instantiation against its plain version in f64 at
+               ladybug-1723's point-keyed shape; the plain tiers on the card
+               (schur_pcg and schur_sparse on ladybug-1723, 10 iterations;
+               dense in f32 and f64 and schur_dense on a 10-camera synthetic
+               problem), each solved twice: the same bits, K1 the only kernel
+               launched;
   6. tiers   — heavy tracks (ladybug-49, max_degree=3) and the dense tiers
                (a 10-camera synthetic problem) on the card, each step against
                schur_sparse's in f64 (1e-8), and the dense tiers through
@@ -576,8 +591,9 @@ def phase_sfm(torch):
     res = inc.run_incremental_sfm(frames, K, cfg, device=dev)
     sfm_s = time.perf_counter() - t0
     launched = {k: v for k, v in _lib.launches.items() if v}
-    if launched:
-        raise AssertionError(f"the SfM path launched kernels {launched}; it runs none")
+    if set(launched) != {"segsum"}:
+        raise AssertionError(f"the SfM path launched {launched}; its windowed BA's sums are "
+                             f"K1's and it runs no other kernel")
     rep = res.report
     reg = res.registered
     rmse_px = math.sqrt(2.0 * res.final_cost / max(rep["n_obs"], 1))
@@ -632,7 +648,14 @@ def phase_sfm(torch):
     say("sfm", f"repeat: {int(res2.registered.sum())} registered, {res2.report['n_points']} "
                f"points, {res2.report['n_obs']} observations, final cost "
                f"{res2.final_cost:.6f} (first {res.final_cost:.6f}); bits match: {same}; "
-               f"{sfm2_s:.3f} s with the windowed BAs timed")
+               f"{sfm2_s:.3f} s with the windowed BAs timed; K1 launches of the first run "
+               f"{launched['segsum']}")
+    if not (same and np.array_equal(res.registered, res2.registered)
+            and res.report["n_points"] == res2.report["n_points"]):
+        raise AssertionError(f"config 4's repeat differs: {int(res2.registered.sum())} / "
+                             f"{int(reg.sum())} registered, {res2.report['n_points']} / "
+                             f"{rep['n_points']} points, cost {res2.final_cost} / "
+                             f"{res.final_cost}")
     win = [c for c in calls if c[0]]
     plain = [w for _, w, d in win if d is None]
     prof = [(w, d) for _, w, d in win if d is not None]
@@ -706,6 +729,177 @@ def phase_sfm(torch):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def sharded_rank(mesh, jobs, gather_width):
+    """One rank of phase ``sharded`` (spawned by ``run_ranks``): the jobs of
+    ``solve_jobs``, then the W all-gather alone at the rank's width, timed
+    over 5 calls after 2 (each call ends in a synchronize)."""
+    import torch
+
+    from tpu_ba_torch.sharding.launch import solve_jobs
+    from tpu_ba_torch.solver.collective import all_gather_cols
+
+    out = solve_jobs(mesh, jobs)
+    W = torch.randn((27, gather_width), device=mesh.device)
+    times = []
+    for i in range(7):
+        torch.cuda.synchronize(mesh.device)
+        t0 = time.perf_counter()
+        all_gather_cols(W, mesh)
+        torch.cuda.synchronize(mesh.device)
+        if i >= 2:
+            times.append(1e3 * (time.perf_counter() - t0))
+    return out, statistics.median(times)
+
+
+SHARDED_KERNELS = ("segsum", "linearize", "cost", "pairblocks", "trackband", "pcg_band")
+
+
+def phase_sharded(torch, problem, golden, golden_cfg, single_lm_it_s):
+    """ladybug-1723 through ``schur_sparse_pallas`` on two ranks sharing the
+    card over gloo: the golden config twice (within 1% of the golden, the
+    kernels of the path launched on each rank and K6 not, both ranks' bits
+    equal, LM it/s of the second), then 8 iterations at λ₀ = 10 against the
+    single-device solve; a 1-rank NCCL group on the same 8 iterations; with
+    two cards or more, NCCL with a rank per card and the scaling table.
+    Returns rank 0's launch counts of the first golden solve."""
+    import numpy as np
+
+    from tpu_ba_torch.core import LMConfig
+    from tpu_ba_torch.sharding import scaling_report
+    from tpu_ba_torch.sharding.launch import problem_arrays, run_ranks, solve_jobs
+    from tpu_ba_torch.solver.lm import solve
+
+    arrays = problem_arrays(problem)
+    gold = dict(golden_cfg, linear_solver="schur_sparse_pallas")
+    # at λ₀ = 1e-4 the first f32 systems are not positive definite and any two
+    # summation orders part within 8 iterations; at λ₀ = 10 they do not
+    short = dict(gold, max_iters=8, init_lambda=10.0)
+    jobs = [dict(problem=arrays, config=gold), dict(problem=arrays, config=gold),
+            dict(problem=arrays, config=short)]
+    width = -(-problem.obs_2d.shape[0] // 256) * 128          # a rank's padded shard
+    t0 = time.perf_counter()
+    ranks = run_ranks(2, sharded_rank, (jobs, width), backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    (r0, gather_ms0), (r1, gather_ms1) = ranks
+    for j, (a, b) in enumerate(zip(r0, r1)):
+        keys = ("cost", "iterations", "cg_history", "cameras", "points")
+        if not all(np.array_equal(a[k], b[k]) for k in keys):
+            raise AssertionError(f"sharded job {j}: the two ranks differ: cost {a['cost']} / "
+                                 f"{b['cost']}, iterations {a['iterations']} / "
+                                 f"{b['iterations']}")
+    for r in (r0, r1):
+        launches = r[0]["launches"]
+        missing = [k for k in SHARDED_KERNELS if launches[k] == 0]
+        if missing or launches["slotband"] or launches["pcg_band_given"]:
+            raise AssertionError(f"rank {r[0]['rank']}: kernels of the sharded path not "
+                                 f"launched {missing}, or K6/K8 launched: {launches}")
+    g, g2 = r0[0], r0[1]
+    gap = (float(g["cost"]) - golden["final_cost"]) / golden["final_cost"]
+    iters, cg_total = int(g["iterations"]), int(g["cg_history"].sum())
+    say("sharded", f"2 ranks over gloo sharing the card ({g['device']} each), ladybug-1723 "
+                   f"schur_sparse_pallas at the golden config: cost {float(g['cost']):.6f}, "
+                   f"golden {golden['final_cost']:.6f}, gap {100 * gap:+.5f}% (limit 1%); "
+                   f"{iters} LM iterations, cg_total {cg_total}; both ranks equal bit for bit "
+                   f"(cost, iterations, CG history, cameras, points) in all 3 solves; launches "
+                   f"per rank {g['launches']}; host reads {g['host_reads']}")
+    if not (math.isfinite(float(g["cost"])) and abs(gap) < 0.01):
+        raise AssertionError(f"sharded: final cost {float(g['cost'])} not within 1% of "
+                             f"{golden['final_cost']}")
+    if not (float(g2["cost"]) == float(g["cost"]) and int(g2["cg_history"].sum()) == cg_total):
+        raise AssertionError(f"sharded: the repeat gave {float(g2['cost'])}, "
+                             f"{int(g2['cg_history'].sum())}")
+    c = g2["collectives"]
+    n_lin = c["all_gather"]
+    say("sharded", f"LM it/s: 2 ranks sharing one card {iters / g2['seconds']:.3f} (second "
+                   f"golden solve, {g2['seconds']:.3f} s), one device without collectives "
+                   f"{single_lm_it_s:.3f} (phase solve, same call); two ranks on one card time-"
+                   f"slice it and pass every collective through the host (gloo), so this is "
+                   f"not a scaling figure. Per rank: {n_lin} W all-gathers of "
+                   f"{c['all_gather_bytes'] / max(n_lin, 1) / 2**20:.2f} MiB, one a "
+                   f"linearization, {gather_ms0:.3f} / {gather_ms1:.3f} ms each alone (ranks 0 "
+                   f"/ 1, median of 5); {c['all_reduce']} all-reduces of "
+                   f"{c['all_reduce_bytes'] / 2**20:.2f} MiB in all, "
+                   f"{c['all_reduce_bytes'] / iters / 2**20:.3f} MiB per λ-retry; spawn and "
+                   f"3 solves {spawn_s:.1f} s")
+    single = solve(problem, LMConfig(**short))
+    s_cost, s_cams = single.cost.item(), single.cameras.cpu().numpy()
+    ones = run_ranks(1, solve_jobs, (jobs[2:],), backend="nccl")[0][0]
+    for name, r in (("2 ranks gloo", r0[2]), ("1 rank nccl", ones)):
+        rel = (float(r["cost"]) - s_cost) / s_cost
+        cam_ok = bool(np.all(np.abs(r["cameras"] - s_cams) <= 1e-3 + 1e-2 * np.abs(s_cams)))
+        say("sharded", f"8 iterations at λ₀ = 10, {name} ({r['backend']}, {r['device']}): cost "
+                       f"{float(r['cost']):.6f} against the single-device solve's {s_cost:.6f}, "
+                       f"rel {rel:+.3e} (limit 1e-5); cameras within rtol 1e-2 / atol 1e-3: "
+                       f"{cam_ok}; CG {r['cg_history'].tolist()} (single "
+                       f"{single.cg_history.tolist()})")
+        if not (abs(rel) <= 1e-5 and cam_ok and int(r["iterations"]) == 8):
+            raise AssertionError(f"sharded {name}: 8 iterations differ from the single-device "
+                                 f"solve: cost {float(r['cost'])} / {s_cost}, cameras {cam_ok}")
+    if ones["backend"] != "nccl":
+        raise AssertionError(f"the 1-rank group ran over {ones['backend']}")
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        walls = {1: ones["seconds"]}
+        per_card = run_ranks(2, solve_jobs, (jobs[2:],), backend="nccl")
+        walls[2] = max(r[0]["seconds"] for r in per_card)
+        say("sharded", f"NCCL, a rank per card: scaling {json.dumps(scaling_report(walls))}")
+    else:
+        say("sharded", "scaling not measured: one card")
+    return dict(g["launches"])
+
+
+def phase_repeat(torch, problem, golden_cfg):
+    """The plain tiers on the card, each solved twice: the same bits. Their
+    sums are K1's over starts built on the device (``segment_sum_t``) and
+    the dense tier writes H in passes, so no sum adds with atomics."""
+    from tpu_ba_torch.core import LMConfig
+    from tpu_ba_torch.io.synthetic import make_synthetic_problem
+    from tpu_ba_torch.kernels import _lib
+    from tpu_ba_torch.kernels.segsum import segment_sum_t, sorted_segment_sum_t_plain
+    from tpu_ba_torch.solver.lm import solve
+
+    # K1's f64 instantiation as the f64 tiers' point-keyed sums call it (keys
+    # not sorted: a stable argsort, read through as perm), against the plain
+    # version in f64
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    vals = torch.randn((3, problem.obs_2d.shape[0]), dtype=torch.float64, generator=gen,
+                       device="cuda")
+    out = segment_sum_t(vals, problem.pt_idx, problem.n_points)
+    ref = sorted_segment_sum_t_plain(vals, problem.pt_idx, problem.n_points)
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    again = torch.equal(out, segment_sum_t(vals, problem.pt_idx, problem.n_points))
+    say("repeat", f"K1 in f64, (3,{vals.shape[1]}) by point through a stable argsort: rel err "
+                  f"{rel:.2e} against the plain version in f64 (limit 1e-12), a second call "
+                  f"equal bit for bit: {again}")
+    if not (rel <= 1e-12 and again):
+        raise AssertionError(f"K1 in f64: rel err {rel}, repeat {again}")
+
+    small = {dt: make_synthetic_problem(10, 100, obs_per_point=4, seed=11, dtype=dt,
+                                        device="cuda")[0]
+             for dt in (torch.float32, torch.float64)}
+    cases = [("schur_pcg", problem, 10), ("schur_sparse", problem, 10),
+             ("dense", small[torch.float32], 8), ("dense", small[torch.float64], 8),
+             ("schur_dense", small[torch.float32], 8)]
+    for tier, prob, iters in cases:
+        cfg = LMConfig(linear_solver=tier, **dict(golden_cfg, max_iters=iters))
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        a = solve(prob, cfg)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launched = {k: v for k, v in _lib.launches.items() if v}
+        b = solve(prob, cfg)
+        same = all(torch.equal(x, y) for x, y in ((a.cameras, b.cameras), (a.points, b.points),
+                                                   (a.cost, b.cost),
+                                                   (a.cg_history, b.cg_history)))
+        say("repeat", f"{tier} {str(prob.cameras.dtype)[6:]}, {prob.n_cameras} cameras, {iters} "
+                      f"iterations: cost {a.cost.item():.9g} twice, bits equal {same}; launches "
+                      f"{launched}; {first_s:.3f} s")
+        if not same or set(launched) != {"segsum"}:
+            raise AssertionError(f"repeat {tier}: the second solve differs ({same}) or the "
+                                 f"launches are not K1's alone: {launched}")
+
+
 def np_equal(a, t):
     """A host array equal, in dtype, shape and values, to a tensor."""
     b = t.detach().cpu().numpy()
@@ -754,7 +948,10 @@ def main() -> int:
     count = torch.cuda.device_count()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
-    say("device", f"{kind}; {count} visible; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    import scipy
+
+    say("device", f"{kind}; {count} visible; torch {torch.__version__}, CUDA {torch.version.cuda}"
+                  f", scipy {scipy.__version__}")
     print(smi.stdout.strip(), flush=True)
 
     # 2. build
@@ -1596,6 +1793,15 @@ def main() -> int:
     phase_resume(torch, problem, path_results["schur_sparse_pallas"],
                  LMConfig(linear_solver="schur_sparse_pallas", **golden_cfg), golden,
                  sparse_kernels)
+    # 5c. the sharded solve on two ranks sharing the card, then the plain
+    # tiers' repeat
+    t0 = time.perf_counter()
+    sharded_launches = phase_sharded(torch, problem, golden, golden_cfg,
+                                     path_figures["schur_sparse_pallas"]["lm_it_s"])
+    say("sharded", f"phase wall time {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    phase_repeat(torch, problem, golden_cfg)
+    say("repeat", f"phase wall time {time.perf_counter() - t0:.3f} s")
     del problem, plans, plan, plain_plan, path_results
 
     # 6. heavy tracks and the dense tiers on the card: each linear step against
@@ -1822,7 +2028,8 @@ def main() -> int:
               "launches_schur_pcg_pallas": path_launches["schur_pcg_pallas"][k],
               "launches_tridiag": path_launches["tridiag"][k],
               "launches_trafalgar_huber": t_launches[k],
-              "launches_venice_community": v_launches[k]}, **results[k])
+              "launches_venice_community": v_launches[k],
+              "launches_sharded": sharded_launches[k]}, **results[k])
         for k in TOL]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

@@ -41,8 +41,8 @@ from tpu_ba_torch.kernels.pairblocks import (fused_pair_blocks, fused_pair_block
                                              pair_schedule)
 from tpu_ba_torch.kernels import pcg_band as pcg_band_mod
 from tpu_ba_torch.kernels.pcg_band import fold_damp_prologue, pcg_banded, pcg_banded_plain
-from tpu_ba_torch.kernels.segsum import (BLOCK_LOG2, group_log2, sorted_segment_sum_t,
-                                         sorted_segment_sum_t_plain)
+from tpu_ba_torch.kernels.segsum import (BLOCK_LOG2, group_log2, segment_sum_t,
+                                         sorted_segment_sum_t, sorted_segment_sum_t_plain)
 from tpu_ba_torch.kernels.slotband import slot_band_blocks, slot_band_blocks_plain
 from tpu_ba_torch.kernels.trackband import fused_track_blocks, fused_track_blocks_plain
 from tpu_ba_torch.solver import pairs as pairs_mod
@@ -1402,8 +1402,9 @@ def test_ransacs_on_the_card_given_the_same_index_sets(dev):
 def test_short_incremental_sfm_on_the_card(dev, sfm_frames):
     """5 frames on the card and on the CPU, f32 as the pipeline runs. The
     random draws are the CPU generator's on both. The decisions before the
-    first BA are the same; after it the f32 solves (whose plain segment sums
-    add with atomics on the card) differ in rounding."""
+    first BA are the same; after it the f32 solves differ in rounding (K1's
+    sums on the card, the plain version's on the CPU); the card's run repeats
+    bit for bit (``test_short_incremental_sfm_repeats_on_the_card``)."""
     from tpu_ba_torch.sfm.incremental import SfMConfig, run_incremental_sfm
 
     frames, gt = sfm_frames
@@ -1417,3 +1418,126 @@ def test_short_incremental_sfm_on_the_card(dev, sfm_frames):
         assert abs(card.report[k] - cpu.report[k]) <= 0.02 * cpu.report[k], k
     assert abs(card.final_cost - cpu.final_cost) <= 1e-2 * cpu.final_cost
     assert np.sqrt(2 * card.final_cost / card.report["n_obs"]) < 2.0
+
+
+def test_short_incremental_sfm_repeats_on_the_card(dev, sfm_frames):
+    """The same 5 frames twice on the card: every windowed BA's sums are K1's,
+    in a fixed order, so the two runs end with the same bits."""
+    from tpu_ba_torch.sfm.incremental import SfMConfig, run_incremental_sfm
+
+    frames, gt = sfm_frames
+    cfg = SfMConfig(max_corners=128, ransac_hypotheses=256, ba_iters=3, final_ba_iters=5)
+    a = run_incremental_sfm(frames, gt["K"], cfg, device=dev)
+    b = run_incremental_sfm(frames, gt["K"], cfg, device=dev)
+    assert a.report["registered_frames"] == b.report["registered_frames"] == 5
+    for k in ("poses", "points", "track_point", "registered"):
+        assert np.array_equal(getattr(a, k), getattr(b, k)), k
+    assert a.final_cost == b.final_cost
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("sorted_keys", [True, False])
+def test_order_fixed_segment_sum_launches_k1(dev, dtype, sorted_keys):
+    """``segment_sum_t`` on the card: K1 (f32 or f64) over starts built on the
+    device, once a call, through a stable argsort where the keys are not
+    sorted; against the plain version in f64 (f64: to 1e-12), and the same
+    bits on a second call."""
+    g = torch.Generator().manual_seed(3)
+    O, N, D = 50_000, 3_000, 12
+    keys = torch.randint(0, N, (O,), generator=g)
+    if sorted_keys:
+        keys = keys.sort().values
+    vals = torch.randn((D, O), generator=g, dtype=torch.float64).to(dev, dtype)
+    keys = keys.to(dev, torch.int32)
+    before = _lib.launches["segsum"]
+    out = segment_sum_t(vals, keys, N, sorted_keys=sorted_keys)
+    assert _lib.launches["segsum"] == before + 1 and out.dtype == dtype
+    ref = sorted_segment_sum_t_plain(vals.double(), keys, N)
+    assert _rel_err(out, ref) <= (1e-12 if dtype == torch.float64 else 1e-5)
+    assert torch.equal(out, segment_sum_t(vals, keys, N, sorted_keys=sorted_keys))
+
+
+@pytest.mark.parametrize("tier,dtype", [
+    ("schur_pcg", torch.float32), ("schur_pcg", torch.float64),
+    ("schur_sparse", torch.float32), ("schur_sparse", torch.float64),
+    ("schur_dense", torch.float32), ("dense", torch.float32), ("dense", torch.float64)])
+def test_plain_tiers_repeat_on_the_card(dev, tier, dtype):
+    """Each plain tier solved twice on the card ends with the same bits: no
+    sum of a solve adds with atomics (K1 takes the segment sums, the dense
+    tier writes H in passes of distinct cells)."""
+    if tier.startswith(("dense", "schur_dense")):
+        p, _ = make_synthetic_problem(10, 100, obs_per_point=4, seed=11, dtype=dtype, device=dev)
+    else:
+        p, _ = make_bal_like_problem("ladybug-49", dtype=dtype, device=dev)
+    cfg = LMConfig(linear_solver=tier, max_iters=8, cg_max_iters=100, cg_tol=1e-4)
+    _lib.reset_launches()
+    a, b = solve(p, cfg), solve(p, cfg)
+    assert _lib.launches["segsum"] > 0
+    assert torch.equal(a.cameras, b.cameras) and torch.equal(a.points, b.points)
+    assert torch.equal(a.cost, b.cost) and torch.equal(a.cg_history, b.cg_history)
+
+
+def test_sharded_solve_on_the_card_matches_the_cpu(dev):
+    """ladybug-49 in f32 through ``schur_sparse_pallas`` on two gloo ranks
+    sharing the card, against the single-device solve on the card within the
+    reference's f32 bounds for its sharded kernel route (cost rtol 1e-5,
+    cameras rtol 1e-2 / atol 1e-3), and against the same two-rank solve on
+    the CPU (the kernels' plain versions) within the card-against-CPU bound
+    of ``test_solve_on_the_card_matches_the_plain_versions`` (5e-4: f32
+    kernels and plain versions differ by ~3e-5 in the final cost). The ranks
+    of each run agree bit for bit. λ₀ = 10: at 1e-4 the first systems are not
+    positive definite in f32 and the trajectory hinges on rounding."""
+    from tpu_ba_torch.sharding.launch import problem_arrays, run_ranks, solve_jobs
+
+    p, _ = make_bal_like_problem("ladybug-49", dtype=torch.float32, device="cpu")
+    cfg = dict(linear_solver="schur_sparse_pallas", max_iters=8, cg_max_iters=100, cg_tol=1e-4,
+               init_lambda=10.0)
+    jobs = [dict(problem=problem_arrays(p), config=cfg)]
+    card = run_ranks(2, solve_jobs, (jobs,), backend="gloo")
+    cpu = run_ranks(2, solve_jobs, (jobs,), device="cpu", threads=1)
+    for run in (card, cpu):
+        a, b = run[0][0], run[1][0]
+        for k in ("cameras", "points", "cost", "cg_history", "iterations"):
+            assert np.array_equal(a[k], b[k]), k
+    got, want = card[0][0], cpu[0][0]
+    assert got["device"] == "cuda:0" and want["device"] == "cpu"
+    for name in ("segsum", "linearize", "cost", "pairblocks", "trackband", "pcg_band"):
+        assert got["launches"][name] > 0, name
+    assert got["launches"]["slotband"] == 0
+    single = solve(make_bal_like_problem("ladybug-49", dtype=torch.float32, device=dev)[0],
+                   LMConfig(**cfg))
+    np.testing.assert_allclose(float(got["cost"]), single.cost.item(), rtol=1e-5)
+    np.testing.assert_allclose(got["cameras"], single.cameras.cpu().numpy(), rtol=1e-2,
+                               atol=1e-3)
+    np.testing.assert_allclose(float(got["cost"]), float(want["cost"]), rtol=5e-4)
+    assert int(got["iterations"]) == int(want["iterations"]) == int(single.iterations) == 8
+
+
+def test_rank_linearize_zeroes_the_cameras_outside_its_shard(dev):
+    """Each rank of a 2-rank split of ladybug-49 runs K2 over its shard with
+    a schedule over every camera (``build_plans`` of the shard, as the
+    sharded solve builds it): about half the cameras have no observation in
+    a shard and come out exact zeros, so the all-reduce adds nothing of
+    them; the two ranks' sums are the whole problem's K2 sums (f32, 1e-5)."""
+    from tpu_ba_torch.sharding.distributed import Mesh, shard_problem
+
+    p, _ = make_bal_like_problem("ladybug-49", dtype=torch.float32, device=dev)
+    C = p.n_cameras
+    whole = build_plans(p.cam_idx, p.pt_idx, C, p.n_points)
+    U_all, gc_all, _, _ = fused_linearize_assemble(
+        p.cameras, p.points, p.obs_2d, p.cam_idx, p.pt_idx, p.mask, whole.cam_start,
+        sched=whole.lin_sched)
+    U_sum, gc_sum = torch.zeros_like(U_all), torch.zeros_like(gc_all)
+    for rank in (0, 1):
+        sh = shard_problem(p, Mesh(None, rank, 2, dev, "gloo"))
+        plans = build_plans(sh.cam_idx, sh.pt_idx, C, p.n_points)
+        U, gc, _, _ = fused_linearize_assemble(
+            sh.cameras, sh.points, sh.obs_2d, sh.cam_idx, sh.pt_idx, sh.mask, plans.cam_start,
+            sched=plans.lin_sched)
+        absent = plans.cam_start.diff() == 0
+        assert 0.3 * C < int(absent.sum()) < 0.7 * C
+        assert torch.all(U[absent] == 0) and torch.all(gc[absent] == 0)
+        U_sum += U
+        gc_sum += gc
+    assert _rel_err(U_sum, U_all.double()) <= 1e-5
+    assert _rel_err(gc_sum, gc_all.double()) <= 1e-5

@@ -46,6 +46,9 @@ MODULES = [
     "tpu_ba_torch.sfm", "tpu_ba_torch.sfm.features", "tpu_ba_torch.sfm.matching",
     "tpu_ba_torch.sfm.triangulate", "tpu_ba_torch.sfm.twoview", "tpu_ba_torch.sfm.pnp",
     "tpu_ba_torch.sfm.incremental", "tpu_ba_torch.sfm.posegraph_bridge",
+    "tpu_ba_torch.sharding", "tpu_ba_torch.sharding.distributed",
+    "tpu_ba_torch.sharding.multihost", "tpu_ba_torch.sharding.launch",
+    "tpu_ba_torch.solver.collective", "tpu_ba_torch.bench.cpu_baseline",
 ]
 
 

@@ -301,8 +301,11 @@ def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch, tmp_path):
         sorted_segment_sum_t(z((3, O)), z((O,), torch.int32), P)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         sorted_segment_sum_t(z((3, O)), z((O,), torch.int32), P, z((P + 1,), torch.int32))
-    with pytest.raises(TypeError):
+    with pytest.raises(RuntimeError, match="nvcc failed"):      # f64 is K1's too
         sorted_segment_sum_t(z((3, O), torch.float64), z((O,), torch.int32), P,
+                             z((P + 1,), torch.int32))
+    with pytest.raises(TypeError):
+        sorted_segment_sum_t(z((3, O), torch.float16), z((O,), torch.int32), P,
                              z((P + 1,), torch.int32))
     lsched = linearize_schedule(np.array([0, 3, 3, O]), device=meta)
     with pytest.raises(RuntimeError, match="nvcc failed"):

@@ -1,8 +1,9 @@
 """The sparse-Schur tier as a whole: ``solve_schur_sparse`` against the
 reference's and against the port's own matrix-free solve on the same
 BlockSystem; ``solve(...)`` for ``schur_sparse`` and ``schur_sparse_pallas``
-against ``tpu_ba`` in f64; the f64 golden of ladybug-49; and the branch
-that is not ported yet (the sharded solve). The tridiagonal preconditioner,
+against ``tpu_ba`` in f64; the f64 golden of ladybug-49; and what the
+sharded solve refuses (its own tests are ``test_torch_sharding.py``). The
+tridiagonal preconditioner,
 non-banded and heavy-point plans and the dense tiers are in
 ``test_torch_sparse_tiers.py``.
 
@@ -30,6 +31,7 @@ from tpu_ba.solver.lm import solve as ref_solve
 from tpu_ba_torch.core import LMConfig, problem_from_numpy
 from tpu_ba_torch.io.bal import make_bal_like_problem
 from tpu_ba_torch.kernels import _lib
+from tpu_ba_torch.sharding.distributed import Mesh
 from tpu_ba_torch.solver import pairs as port_pairs
 from tpu_ba_torch.solver import pcg as pcg_mod
 from tpu_ba_torch.solver.lm import build_solver_plans, lm_loop, solve
@@ -177,10 +179,15 @@ def _sparse_solve(make, plan_kw, **solve_kw):
 
 
 @pytest.mark.parametrize("call,match", [
-    (lambda: _sparse_solve(ring_problem, {}, axis_name="obs"), "queue 1, item 8"),
+    (lambda: _sparse_solve(ring_problem, {}, group=Mesh(None, 0, 2, torch.device("cpu"), "gloo")),
+     "shard_pair_plan"),
 ], ids=["axis_name"])
 def test_unported_sparse_branches_raise(call, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """The reference's ``axis_name`` is the port's ``group``: the sharded
+    sparse solve is ported (``test_torch_sharding.py``), and handed the
+    whole pair plan under a group of two it raises, since every rank would
+    add the whole plan's blocks and the all-reduce would double them."""
+    with pytest.raises(ValueError, match=match):
         call()
 
 

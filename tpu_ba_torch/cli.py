@@ -5,13 +5,18 @@ Usage:
     python -m tpu_ba_torch.cli ba --bal-file problem.txt --checkpoint ck --checkpoint-every 20
     python -m tpu_ba_torch.cli ba --resume ck --bal-file problem.txt --max-iters 80
     python -m tpu_ba_torch.cli ba --problem synthetic --max-iters 8 --device cpu
+    python -m tpu_ba_torch.cli ba --sharded --coordinator 127.0.0.1:29500 \
+        --num-processes 2 --process-id 0 --solver schur_sparse_pallas    (and id 1)
     python -m tpu_ba_torch.cli sfm --frames 8 --points 300 --out scene.txt
     python -m tpu_ba_torch.cli posegraph --nodes 50 --noise 0.03
 
-Each prints one JSON line with its result and runs on the CUDA card unless
-``--device`` names another. The reference's ``bench`` subcommand
-(``tpu_ba/cli.py``, which runs ``bench.py``) and its sharded run are not
-ported.
+Each prints one JSON line with its result (a sharded ``ba``: rank 0 alone)
+and runs on the CUDA card unless ``--device`` names another; a sharded rank
+takes the card ``cuda:{rank % device_count}``. ``ba --sharded`` runs one
+process per rank; without ``--coordinator`` it is a group of one on this
+process's device, where the reference's single process spans every local
+device. The reference's ``bench`` subcommand (``tpu_ba/cli.py``, which runs
+``bench.py``) is not ported.
 """
 
 from __future__ import annotations
@@ -50,6 +55,17 @@ def _add_ba(sub):
     p.add_argument("--robust", choices=["none", "huber", "cauchy", "arctan"], default="none")
     p.add_argument("--robust-scale", type=float, default=2.0)
     _add_device(p)
+    p.add_argument("--dtype", choices=["float32", "float64"], default="float32",
+                   help="the problem's float type (the kernels take float32)")
+    p.add_argument("--sharded", action="store_true",
+                   help="observation-sharded solve, one process per rank (see --coordinator); "
+                        "without a coordinator a group of one")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port where rank 0 listens (COORDINATOR_ADDRESS)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="ranks of the sharded solve (NUM_PROCESSES)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank (PROCESS_ID)")
     p.add_argument("--metrics", default=None, help="JSONL metrics output path")
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint dir to write at the end of the solve")
@@ -89,27 +105,51 @@ def _add_posegraph(sub):
 
 
 def cmd_ba(args) -> int:
+    from tpu_ba_torch.core import resolve_device
+
+    mesh = None
+    if args.sharded:
+        from tpu_ba_torch.sharding import init_distributed, make_mesh
+
+        init_distributed(args.coordinator, args.num_processes, args.process_id,
+                         device=args.device)
+        mesh = make_mesh(device=args.device)
+        device = mesh.device
+    else:
+        device = resolve_device(args.device)
+    try:
+        return _ba(args, device, mesh)
+    finally:
+        if mesh is not None and mesh.pg is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _ba(args, device, mesh) -> int:
+    import torch
+
     from tpu_ba_torch.bench.metrics import MetricsLogger
-    from tpu_ba_torch.core import LMConfig, resolve_device
+    from tpu_ba_torch.core import LMConfig
     from tpu_ba_torch.io.bal import load_bal, make_bal_like_problem
     from tpu_ba_torch.io.synthetic import make_synthetic_problem
     from tpu_ba_torch.residuals.robust import ROBUST_KINDS
     from tpu_ba_torch.solver.lm import save_result, solve
 
-    device = resolve_device(args.device)
+    where = dict(device=device, dtype=getattr(torch, args.dtype))
     if args.scene:
         from tpu_ba_torch.io.scene import load_scene
 
-        problem = load_scene(args.scene, device=device)
+        problem = load_scene(args.scene, **where)
         n_obs = problem.n_obs
     elif args.bal_file:
-        problem = load_bal(args.bal_file, device=device)
+        problem = load_bal(args.bal_file, **where)
         n_obs = problem.n_obs
     elif args.problem == "synthetic":
-        problem, gt = make_synthetic_problem(20, 500, device=device)
+        problem, gt = make_synthetic_problem(20, 500, **where)
         n_obs = gt["n_obs"]
     else:
-        problem, gt = make_bal_like_problem(args.problem, device=device)
+        problem, gt = make_bal_like_problem(args.problem, **where)
         n_obs = gt["n_obs"]
 
     kwargs = dict(max_iters=args.max_iters, cg_max_iters=args.cg_iters, cg_tol=args.cg_tol,
@@ -122,13 +162,24 @@ def cmd_ba(args) -> int:
             kwargs.update(json.load(fh))  # JSON wins over flags
     cfg = LMConfig(**kwargs)
 
-    log = MetricsLogger(args.metrics)
+    lead = mesh is None or mesh.rank == 0       # the rank that writes and prints
+    log = MetricsLogger(args.metrics if lead else None)
     t0 = time.time()
     # --resume restores the whole trust-region state: resumed ≡ uninterrupted
-    res = solve(problem, cfg, resume_from=args.resume)
+    if mesh is not None:
+        from tpu_ba_torch.sharding import solve_sharded
+
+        res = solve_sharded(problem, cfg, mesh, resume_from=args.resume)
+    else:
+        res = solve(problem, cfg, resume_from=args.resume)
     final = float(res.cost)
     wall = time.time() - t0
     label = args.bal_file or args.problem
+    shard_info = {}
+    if mesh is not None:        # every rank takes part
+        shard_info = {"ranks": mesh.world, "ranks_equal": _ranks_equal(res, mesh)}
+    if not lead:
+        return 0
     log.log_lm_result(res, wall_s=wall, label=label)
     log.close()
 
@@ -155,13 +206,30 @@ def cmd_ba(args) -> int:
 
     print(json.dumps({
         "problem": label, "solver": cfg.linear_solver, "precond": cfg.precond,
-        "device": str(problem.device),
+        "device": str(problem.device), **shard_info,
         "iterations": int(res.iterations), "accepted": int(res.accepted),
         "initial_cost": float(res.initial_cost), "final_cost": final,
         "rmse_px": math.sqrt(2.0 * final / max(n_obs, 1)), "wall_s": wall,
         "converged": bool(res.converged),
     }))
     return 0
+
+
+def _ranks_equal(res, mesh) -> bool:
+    """Whether every rank of a sharded solve ended with the same bits: a
+    digest of each rank's parameters and cost, gathered to all."""
+    import hashlib
+
+    import torch
+
+    from tpu_ba_torch.solver.collective import all_gather_cols
+
+    h = hashlib.blake2b(digest_size=8)
+    for t in (res.cameras, res.points, res.cost):
+        h.update(t.detach().cpu().numpy().tobytes())
+    mine = torch.tensor([int.from_bytes(h.digest(), "little", signed=True)], dtype=torch.int64,
+                        device=mesh.device)
+    return bool((all_gather_cols(mine, mesh) == mine).all())
 
 
 def cmd_sfm(args) -> int:

@@ -34,9 +34,14 @@
 //           address; the four warps' sums are added in order. Any run length.
 // No atomics: the sum order is fixed and the result deterministic. An empty
 // segment comes out exactly 0.
+//
+// The same kernels in double (tba_segsum_t_f64) serve the plain solver tiers
+// in f64 on the card (kernels/segsum.py:segment_sum_t), whose sums must repeat
+// bit for bit as the f32 ones do; the block schedule there reads scalars.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -44,10 +49,10 @@ constexpr int kLanesThreads = 256;
 constexpr int kBlockThreads = 128;
 constexpr int kBlockLog2 = 7;              // group_log2 of the block schedule
 
-template <int R, bool kPerm>
+template <typename T, int R, bool kPerm>
 __global__ void __launch_bounds__(kLanesThreads)
-segsum_lanes_kernel(const float* __restrict__ values, const int* __restrict__ perm,
-                    const int* __restrict__ seg_start, float* __restrict__ out, int n_obs,
+segsum_lanes_kernel(const T* __restrict__ values, const int* __restrict__ perm,
+                    const int* __restrict__ seg_start, T* __restrict__ out, int n_obs,
                     int n_out, int group_log2) {
   const int group = 1 << group_log2;
   const unsigned gid = blockIdx.x * kLanesThreads + threadIdx.x;
@@ -55,11 +60,11 @@ segsum_lanes_kernel(const float* __restrict__ values, const int* __restrict__ pe
   const int lane = static_cast<int>(gid & (group - 1));
   const size_t row0 = static_cast<size_t>(blockIdx.y) * R;
   const bool active = seg < n_out;
-  float acc[R];
+  T acc[R];
 #pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+  for (int r = 0; r < R; ++r) acc[r] = T(0);
   if (active) {
-    const float* v = values + row0 * n_obs;
+    const T* v = values + row0 * n_obs;
     const int end = seg_start[seg + 1];
 #pragma unroll 4
     for (int o = seg_start[seg] + lane; o < end; o += group) {
@@ -79,20 +84,28 @@ segsum_lanes_kernel(const float* __restrict__ values, const int* __restrict__ pe
   }
 }
 
-template <int R, bool kPerm>
+template <typename T, int R, bool kPerm>
 __global__ void __launch_bounds__(kBlockThreads)
-segsum_block_kernel(const float* __restrict__ values, const int* __restrict__ perm,
-                    const int* __restrict__ seg_start, float* __restrict__ out, int n_obs,
+segsum_block_kernel(const T* __restrict__ values, const int* __restrict__ perm,
+                    const int* __restrict__ seg_start, T* __restrict__ out, int n_obs,
                     int n_out) {
-  __shared__ float warp_s[kBlockThreads / 32][R];
+  __shared__ T warp_s[kBlockThreads / 32][R];
   const int seg = blockIdx.x, tid = threadIdx.x;
   const size_t row0 = static_cast<size_t>(blockIdx.y) * R;
   const int start = seg_start[seg], end = seg_start[seg + 1];
-  const float* v = values + row0 * n_obs;
-  float acc[R];
+  const T* v = values + row0 * n_obs;
+  T acc[R];
 #pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-  if (kPerm) {
+  for (int r = 0; r < R; ++r) acc[r] = T(0);
+  if constexpr (!std::is_same<T, float>::value) {
+    // double: scalar loads, a row's run strided over the block
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const T* p = v + static_cast<size_t>(r) * n_obs;
+#pragma unroll 4
+      for (int o = start + tid; o < end; o += kBlockThreads) acc[r] += p[kPerm ? perm[o] : o];
+    }
+  } else if (kPerm) {
 #pragma unroll 4
     for (int o = start + tid; o < end; o += kBlockThreads) {
       const int at = perm[o];
@@ -135,31 +148,52 @@ segsum_block_kernel(const float* __restrict__ values, const int* __restrict__ pe
   }
 }
 
-template <int R, bool kPerm>
-int launch(const float* values, const int* perm, const int* seg_start, float* out, int n_rows,
+template <typename T, int R, bool kPerm>
+int launch(const T* values, const int* perm, const int* seg_start, T* out, int n_rows,
            int n_obs, int n_out, int group_log2, cudaStream_t stream) {
   const unsigned tiles = static_cast<unsigned>(n_rows / R);
   if (tiles > 65535u) return static_cast<int>(cudaErrorInvalidValue);      // gridDim.y
   if (group_log2 == kBlockLog2) {
-    segsum_block_kernel<R, kPerm><<<dim3(static_cast<unsigned>(n_out), tiles), kBlockThreads, 0,
-                                    stream>>>(values, perm, seg_start, out, n_obs, n_out);
+    segsum_block_kernel<T, R, kPerm><<<dim3(static_cast<unsigned>(n_out), tiles), kBlockThreads,
+                                       0, stream>>>(values, perm, seg_start, out, n_obs, n_out);
   } else {
     const long long n_threads = static_cast<long long>(n_out) << group_log2;
     const unsigned n_blocks = static_cast<unsigned>((n_threads + kLanesThreads - 1) / kLanesThreads);
-    segsum_lanes_kernel<R, kPerm><<<dim3(n_blocks, tiles), kLanesThreads, 0, stream>>>(
+    segsum_lanes_kernel<T, R, kPerm><<<dim3(n_blocks, tiles), kLanesThreads, 0, stream>>>(
         values, perm, seg_start, out, n_obs, n_out, group_log2);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int R>
-int launch_rows(const float* values, const int* perm, const int* seg_start, float* out,
+template <typename T, int R>
+int launch_rows(const T* values, const int* perm, const int* seg_start, T* out,
                 int n_rows, int n_obs, int n_out, int group_log2, cudaStream_t stream) {
   return perm != nullptr
-             ? launch<R, true>(values, perm, seg_start, out, n_rows, n_obs, n_out, group_log2,
-                               stream)
-             : launch<R, false>(values, perm, seg_start, out, n_rows, n_obs, n_out, group_log2,
-                                stream);
+             ? launch<T, R, true>(values, perm, seg_start, out, n_rows, n_obs, n_out,
+                                  group_log2, stream)
+             : launch<T, R, false>(values, perm, seg_start, out, n_rows, n_obs, n_out,
+                                   group_log2, stream);
+}
+
+template <typename T>
+int segsum_t(const T* values, const int* perm, const int* seg_start, T* out, int n_rows,
+             int n_obs, int n_out, int group_log2, void* stream) {
+  if (group_log2 < 0 || (group_log2 > 5 && group_log2 != kBlockLog2) || n_rows < 0 ||
+      n_out < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_rows == 0 || n_out == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_rows % 3 == 0) {
+    return launch_rows<T, 3>(values, perm, seg_start, out, n_rows, n_obs, n_out, group_log2, s);
+  }
+  if (n_rows % 4 == 0) {
+    return launch_rows<T, 4>(values, perm, seg_start, out, n_rows, n_obs, n_out, group_log2, s);
+  }
+  if (n_rows % 2 == 0) {
+    return launch_rows<T, 2>(values, perm, seg_start, out, n_rows, n_obs, n_out, group_log2, s);
+  }
+  return launch_rows<T, 1>(values, perm, seg_start, out, n_rows, n_obs, n_out, group_log2, s);
 }
 
 }  // namespace
@@ -169,20 +203,12 @@ int launch_rows(const float* values, const int* perm, const int* seg_start, floa
 extern "C" int tba_segsum_t(const float* values, const int* perm, const int* seg_start,
                             float* out, int n_rows, int n_obs, int n_out, int group_log2,
                             void* stream) {
-  if (group_log2 < 0 || (group_log2 > 5 && group_log2 != kBlockLog2) || n_rows < 0 ||
-      n_out < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_rows == 0 || n_out == 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_rows % 3 == 0) {
-    return launch_rows<3>(values, perm, seg_start, out, n_rows, n_obs, n_out, group_log2, s);
-  }
-  if (n_rows % 4 == 0) {
-    return launch_rows<4>(values, perm, seg_start, out, n_rows, n_obs, n_out, group_log2, s);
-  }
-  if (n_rows % 2 == 0) {
-    return launch_rows<2>(values, perm, seg_start, out, n_rows, n_obs, n_out, group_log2, s);
-  }
-  return launch_rows<1>(values, perm, seg_start, out, n_rows, n_obs, n_out, group_log2, s);
+  return segsum_t<float>(values, perm, seg_start, out, n_rows, n_obs, n_out, group_log2, stream);
+}
+
+extern "C" int tba_segsum_t_f64(const double* values, const int* perm, const int* seg_start,
+                                double* out, int n_rows, int n_obs, int n_out, int group_log2,
+                                void* stream) {
+  return segsum_t<double>(values, perm, seg_start, out, n_rows, n_obs, n_out, group_log2,
+                          stream);
 }

@@ -65,6 +65,8 @@ _SIGNATURES = {
     "tba_pcg_barrier_floor": [_I, _I, _I, _P, _P, _P],
     # values, perm, seg_start, out, n_rows, n_obs, n_out, group_log2, stream
     "tba_segsum_t": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # the same in double
+    "tba_segsum_t_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # cams, pts, obs, pt_idx, mask, pieces, n_pieces, piece_obs, piece_start,
     # empty, n_empty, n_obs, threads, robust_kind, robust_scale, freeze_mask, U,
     # gc, obs_out, scratch, ticket, stream

@@ -6,6 +6,11 @@ The CUDA kernel (``tpu_ba_torch/csrc/segsum.cu``) takes CSR segment starts
 ``tpu_ba_torch/solver/plans.py``) in place of the reference's one-hot work
 list, and can gather its input through a permutation as it reads
 (``perm``). ``sorted_segment_sum_t_plain`` is its plain PyTorch version.
+
+``segment_sum_t`` is the sum the solver takes where it has no plan (the
+plain tiers, the SfM's windowed BA): on the card it launches K1 over starts
+built on the device, so that no solve adds with atomics and every solve
+repeats bit for bit.
 """
 
 from __future__ import annotations
@@ -99,7 +104,8 @@ def group_log2(n_obs: int, n_out: int, n_rows: int, longest: int | None = None,
 
 def sorted_segment_sum_t(values_t, keys, n_out: int, seg_start=None, perm=None,
                          schedule: int | None = None, longest: int | None = None):
-    """Segment sum of ``values_t`` (D, O) by sorted ``keys`` (O,) → (D, n_out).
+    """Segment sum of ``values_t`` (D, O), f32 or f64, by sorted ``keys`` (O,)
+    → (D, n_out).
     With ``perm`` ((O,) int32) the kernel gathers as it reads: the value summed
     under ``keys[o]`` is ``values_t[:, perm[o]]``, so values that lie in
     another order need no gathered copy.
@@ -115,18 +121,41 @@ def sorted_segment_sum_t(values_t, keys, n_out: int, seg_start=None, perm=None,
     if seg_start is None:
         raise ValueError("sorted_segment_sum_t on CUDA needs seg_start (see solver/plans.py)")
     D, O = values_t.shape
-    dev = values_t.device
-    _lib.check_tensor("values_t", values_t, torch.float32, (D, O), dev)
+    dev, dt = values_t.device, values_t.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"values_t: dtype {dt}, the kernel takes float32 or float64")
+    _lib.check_tensor("values_t", values_t, dt, (D, O), dev)
     _lib.check_tensor("seg_start", seg_start, torch.int32, (n_out + 1,), dev)
     if perm is not None:
         _lib.check_tensor("perm", perm, torch.int32, (O,), dev)
     lib = _lib.load_library()
     if schedule is None:
         schedule = group_log2(O, n_out, D, longest, fill_threads(dev), perm is not None)
-    out = torch.empty((D, n_out), dtype=torch.float32, device=dev)
-    status = lib.tba_segsum_t(values_t.data_ptr(), None if perm is None else perm.data_ptr(),
-                              seg_start.data_ptr(), out.data_ptr(), D, O, n_out, int(schedule),
-                              _lib.stream_ptr(values_t))
+    out = torch.empty((D, n_out), dtype=dt, device=dev)
+    fn = lib.tba_segsum_t if dt == torch.float32 else lib.tba_segsum_t_f64
+    status = fn(values_t.data_ptr(), None if perm is None else perm.data_ptr(),
+                seg_start.data_ptr(), out.data_ptr(), D, O, n_out, int(schedule),
+                _lib.stream_ptr(values_t))
     _lib.launches["segsum"] += 1
     _lib.check_status("segsum", status)
     return out
+
+
+def segment_sum_t(values_t, keys, n_out: int, perm=None, *, sorted_keys: bool = False):
+    """``sorted_segment_sum_t_plain``'s sum in a fixed order: what the solver
+    calls where it has no plan. A CPU tensor takes the plain version. On a
+    CUDA tensor (f32 or f64) K1 runs over CSR starts built on the device
+    (``torch.searchsorted``); keys that are not known to be sorted
+    (``sorted_keys`` False) are first put in order by a stable argsort, which
+    K1 reads through as its ``perm``. Keys outside [0, n_out) are dropped."""
+    if values_t.device.type == "cpu":
+        return sorted_segment_sum_t_plain(values_t, keys, n_out, perm)
+    if not sorted_keys:
+        order = torch.argsort(keys, stable=True)
+        keys = keys[order]
+        perm = order if perm is None else perm.long()[order]
+    keys = keys.contiguous()
+    edges = torch.arange(n_out + 1, dtype=keys.dtype, device=keys.device)
+    seg_start = torch.searchsorted(keys, edges, out_int32=True)
+    return sorted_segment_sum_t(values_t.contiguous(), keys, n_out, seg_start,
+                                perm=None if perm is None else perm.to(torch.int32))

@@ -22,10 +22,12 @@ from tpu_ba_torch.kernels.segsum import sorted_segment_sum_t_plain
 
 
 def slot_band_blocks_plain(Ws, Vs, lam, layout, *, dc: int = 9, diag_floor: float,
-                           diag_ceil: float):
+                           diag_ceil: float, segment_sum=sorted_segment_sum_t_plain):
     """Plain PyTorch version of K6 (the reference's ``slot_blocks_jnp``):
     per bucket and slot pair the products of all points, summed into
-    tile-local grids, then folded into the band by the host-sorted keys."""
+    tile-local grids, then folded into the band by the host-sorted keys.
+    ``segment_sum`` (values, keys, n_out, perm) takes every sum: the solver
+    passes ``segment_sum_t``, whose order is fixed on the card."""
     d2 = dc * dc
     parts = []
     for k, d in enumerate(layout.degrees):
@@ -47,11 +49,11 @@ def slot_band_blocks_plain(Ws, Vs, lam, layout, *, dc: int = 9, diag_floor: floa
                 # zero, so its key is clamped into range
                 local = torch.clamp((cam[a] - base) * layout.n_off_loc + (cam[b] - cam[a]),
                                     0, width - 1)
-                out_k.scatter_add_(1, (tix * width + local).expand_as(vals), vals)
+                out_k += segment_sum(vals, tix * width + local, n_tiles * width)
         parts.append(out_k)
     l1 = torch.cat(parts, dim=1)
     l1 = torch.nn.functional.pad(l1, (0, layout.l2_len - l1.shape[1]))
-    out = sorted_segment_sum_t_plain(l1[:, layout.l2_perm], layout.l2_keys, layout.n_out + 1)
+    out = segment_sum(l1, layout.l2_keys, layout.n_out + 1, layout.l2_perm)
     return out[:, :layout.n_out]
 
 

@@ -20,9 +20,11 @@ from tpu_ba_torch.kernels.segsum import sorted_segment_sum_t_plain
 
 
 def fused_track_blocks_plain(Wt, Vt, lam, layout, *, dc: int = 9, diag_floor: float,
-                             diag_ceil: float):
+                             diag_ceil: float, segment_sum=sorted_segment_sum_t_plain):
     """Plain PyTorch version of K5 (the reference's ``track_blocks_jnp``):
-    per slot pair the products of all points, summed by start camera + a."""
+    per slot pair the products of all points, summed by start camera + a.
+    ``segment_sum`` (values, keys, n_out) takes the sums: the solver passes
+    ``segment_sum_t``, whose order is fixed on the card."""
     d2 = dc * dc
     Vinv = damped_vinv_rows(Vt, lam, diag_floor, diag_ceil)
     out = torch.zeros((layout.dmax * d2, layout.n_out), dtype=Wt.dtype, device=Wt.device)
@@ -32,7 +34,7 @@ def fused_track_blocks_plain(Wt, Vt, lam, layout, *, dc: int = 9, diag_floor: fl
         for b in range(a, layout.dmax):
             vals = block_products_rows(Wm[a], Vinv, Wm[b], dc)
             off = b - a
-            out[off * d2:(off + 1) * d2] += sorted_segment_sum_t_plain(vals, keys, layout.n_out)
+            out[off * d2:(off + 1) * d2] += segment_sum(vals, keys, layout.n_out)
     return out
 
 

@@ -3,12 +3,20 @@
 Counterpart of ``tpu_ba/solver/dense.py``: assemble the full damped normal
 equations and solve them directly. For tests and tiny problems; the matrix is
 (C·dc + 3P) square.
+
+H is written in a fixed order, so a solve repeats bit for bit on the card:
+the camera and point blocks are written once each, and the coupling blocks
+of the observations that share a (camera, point) cell are added in passes,
+the k-th observation of every cell in pass k (the pose graph's
+``_rank_passes``), no cell twice in a pass.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from tpu_ba_torch.posegraph.solver import _rank_passes
 from tpu_ba_torch.solver.normal import BlockSystem, damp_blocks
 
 
@@ -28,18 +36,21 @@ def dense_hessian(B: BlockSystem, lam, diag_floor: float, diag_ceil: float):
     ar_dc, ar3 = torch.arange(dc, device=dev), torch.arange(3, device=dev)
     arC, arP = torch.arange(C, device=dev), torch.arange(P, device=dev)
 
-    def add(rows, cols, vals):            # H[rows, cols] += vals, repeated cells summed
+    def put(rows, cols, vals, add=False):   # cells distinct within one call
         rows, cols = torch.broadcast_tensors(rows, cols)
-        H.index_put_((rows, cols), vals, accumulate=True)
+        H.index_put_((rows, cols), H[rows, cols] + vals if add else vals)
 
-    add(arC[:, None, None] * dc + ar_dc[None, :, None],
+    put(arC[:, None, None] * dc + ar_dc[None, :, None],
         arC[:, None, None] * dc + ar_dc[None, None, :], Ul)
-    add(C * dc + arP[:, None, None] * 3 + ar3[None, :, None],
+    put(C * dc + arP[:, None, None] * 3 + ar3[None, :, None],
         C * dc + arP[:, None, None] * 3 + ar3[None, None, :], Vl)
-    oi = B.cam_idx.long()[:, None, None] * dc + ar_dc[None, :, None]
-    oj = C * dc + B.pt_idx.long()[:, None, None] * 3 + ar3[None, None, :]
-    add(oi, oj, W_aos)
-    add(oj, oi, W_aos)                    # the transposed blocks, cell for cell
+    ci = B.cam_idx.cpu().numpy().astype(np.int64)
+    cells = ci * P + B.pt_idx.cpu().numpy().astype(np.int64)
+    for src, cell in _rank_passes(cells, dev):
+        oi = (cell // P)[:, None, None] * dc + ar_dc[None, :, None]
+        oj = C * dc + (cell % P)[:, None, None] * 3 + ar3[None, None, :]
+        put(oi, oj, W_aos[src], add=True)
+        put(oj, oi, W_aos[src], add=True)     # the transposed blocks, cell for cell
 
     g = torch.cat([B.gc.reshape(-1), B.gp.T.reshape(-1)])
     return H, g

@@ -44,6 +44,14 @@ Linear-solver tiers (the names are the reference's):
                             plan the whole PCG solve in one kernel (K4, or K8
                             with ``precond="tridiag"``), on a non-banded one
                             the host-loop PCG with K1 in its matvec
+
+Sharded (``group``, ``tpu_ba_torch/sharding/``): the same loop on every rank
+over the rank's observation shard, parameters replicated. The cost, the
+linearization's sums and the Schur routines' observation sums are
+all-reduced, W is all-gathered once per linearization, and every host read
+of the loop's flags is checked equal across the ranks
+(``solver/collective.py``). ``dense`` and ``schur_dense*`` have no sharded
+path and raise, as in the reference.
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ from tpu_ba_torch.jacobians.analytic import jacobian_blocks_bal
 from tpu_ba_torch.kernels.linearize import fused_cost, fused_linearize_assemble
 from tpu_ba_torch.residuals.reprojection import residuals_bal
 from tpu_ba_torch.residuals.robust import robust_rho
+from tpu_ba_torch.solver.collective import all_gather_cols, all_reduce, all_reduce_many
 from tpu_ba_torch.solver.dense import solve_dense
 from tpu_ba_torch.solver.normal import BlockSystem, assemble
 from tpu_ba_torch.solver.pairs import (build_pair_plan, precompute_pair_data, solve_schur_dense,
@@ -81,6 +90,15 @@ def check_config(config: LMConfig) -> None:
         raise ValueError(f"precond must be 'jacobi' or 'tridiag', got {config.precond!r}")
 
 
+def check_sharded_tier(config: LMConfig) -> None:
+    """Raise ValueError for the tiers with no sharded path, as the reference
+    does (``tpu_ba/sharding/distributed.py:solve_sharded``)."""
+    if config.linear_solver == "dense":
+        raise ValueError("dense solver has no sharded path; use schur_pcg")
+    if config.linear_solver in DENSE_TIERS:
+        raise ValueError("schur_dense has no sharded path; use schur_sparse")
+
+
 def _robust_cost(r, kind, scale, mask):
     rho = robust_rho(kind, torch.sum(r * r, dim=-1), scale)
     return 0.5 * torch.sum(torch.where(mask, rho, torch.zeros_like(rho)))
@@ -88,17 +106,21 @@ def _robust_cost(r, kind, scale, mask):
 
 def lm_loop(cams0, pts0, obs, ci, pi, mask, n_cameras: int, n_points: int,
             config: LMConfig, plans=None, init_state=None, pairs=None,
-            stop_at: int | None = None) -> LMResult:
+            stop_at: int | None = None, group=None) -> LMResult:
     """The LM trust-region loop. ``pairs`` is the pair plan of the sparse
     and dense-Schur tiers (``solver/pairs.py``). ``init_state`` = (lam, nu, it[, warm_dxc,
     gnorm0]) — numbers, numpy arrays or tensors, e.g. from a ``tpu_ba``
     LMResult — resumes the trust-region state; with cams0/pts0 from the same
     source the resumed trajectory is the uninterrupted one. ``stop_at``
     pauses the loop at that iteration count (a chunk's boundary); the
-    histories keep ``config.max_iters`` slots."""
+    histories keep ``config.max_iters`` slots. ``group``: a sharded solve's
+    mesh (``sharding.make_mesh``); obs/ci/pi/mask are then the rank's shard,
+    ``plans`` and ``pairs`` the rank's (``sharding.solve_sharded``)."""
     check_config(config)
     sparse = config.linear_solver in SPARSE_TIERS
     paired = sparse or config.linear_solver in DENSE_TIERS
+    if group is not None:
+        check_sharded_tier(config)
     if paired and pairs is None:
         raise ValueError(f"linear_solver={config.linear_solver!r} needs a pair plan "
                          "(solve() builds one)")
@@ -118,9 +140,11 @@ def lm_loop(cams0, pts0, obs, ci, pi, mask, n_cameras: int, n_points: int,
 
     def cost_fn(cams, pts):
         if use_fused:
-            return fused_cost(cams, pts, obs, ci, pi, mask, sched=plans.lin_sched,
-                              robust_kind=kind, robust_scale=scale)
-        return _robust_cost(residuals_bal(cams, pts, obs, ci, pi, mask), kind, scale, mask)
+            c = fused_cost(cams, pts, obs, ci, pi, mask, sched=plans.lin_sched,
+                           robust_kind=kind, robust_scale=scale)
+        else:
+            c = _robust_cost(residuals_bal(cams, pts, obs, ci, pi, mask), kind, scale, mask)
+        return all_reduce(c, group)
 
     def linearize(cams, pts) -> BlockSystem:
         if use_fused:
@@ -128,14 +152,17 @@ def lm_loop(cams0, pts0, obs, ci, pi, mask, n_cameras: int, n_points: int,
                 cams, pts, obs, ci, pi, mask, plans.cam_start, sched=plans.lin_sched,
                 robust_kind=kind, robust_scale=scale, freeze_cols=config.freeze_camera_cols)
             ptp = pt_segsum_t(plans, pt_vals[:12], pi, n_points)
-            return BlockSystem(U=U, V=ptp[:9], W=W, gc=gc, gp=ptp[9:12],
-                               cost=0.5 * torch.sum(pt_vals[12]), cam_idx=ci, pt_idx=pi)
+            # the rank's partials → replicated totals, one collective
+            U, gc, ptp, cost_lin = all_reduce_many([U, gc, ptp, 0.5 * torch.sum(pt_vals[12])],
+                                                   group)
+            return BlockSystem(U=U, V=ptp[:9], W=W, gc=gc, gp=ptp[9:12], cost=cost_lin,
+                               cam_idx=ci, pt_idx=pi)
         r, Jc, Jp = jacobian_blocks_bal(cams, pts, obs, ci, pi, mask)
         if config.freeze_camera_cols:
             colmask = torch.tensor([0.0 if m in config.freeze_camera_cols else 1.0
                                     for m in range(cams.shape[-1])], dtype=dtype, device=device)
             Jc = Jc * colmask[None, :, None]
-        return assemble(r, Jc, Jp, ci, pi, n_cameras, n_points, kind, scale, mask, plans)
+        return assemble(r, Jc, Jp, ci, pi, n_cameras, n_points, kind, scale, mask, plans, group)
 
     def linear_solve(B, lam, pair_data, cg_x0, cg_tol):
         if config.linear_solver == "dense":
@@ -145,11 +172,11 @@ def lm_loop(cams0, pts0, obs, ci, pi, mask, n_cameras: int, n_points: int,
                   diag_floor=config.diag_floor, diag_ceil=config.diag_ceil)
         if sparse:
             return solve_schur_sparse(
-                B, lam, pairs, pair_data, precond=config.precond, plans=plans,
+                B, lam, pairs, pair_data, precond=config.precond, plans=plans, group=group,
                 pcg_kernel=config.linear_solver == "schur_sparse_pallas", **kw)
         if paired:
             return solve_schur_dense(B, lam, pairs, pair_data, **kw)
-        return solve_schur_pcg(B, lam, plans=plans, **kw)
+        return solve_schur_pcg(B, lam, plans=plans, group=group, **kw)
 
     M = config.max_iters
     cost0 = cost_fn(cams0, pts0)
@@ -167,7 +194,7 @@ def lm_loop(cams0, pts0, obs, ci, pi, mask, n_cameras: int, n_points: int,
             warm = as_tensor(init_state[3])
             gnorm0 = as_scalar(init_state[4])
         # λ below its ceiling, in the working dtype
-        (lam_ok,) = read_flags("state", lam < config.max_lambda)
+        (lam_ok,) = read_flags("state", lam < config.max_lambda, group=group)
     else:
         lam = as_scalar(config.init_lambda)
         nu = as_scalar(2.0)
@@ -185,8 +212,10 @@ def lm_loop(cams0, pts0, obs, ci, pi, mask, n_cameras: int, n_points: int,
         # scale) before the next ones are made
         B = pair_data = None
         B = linearize(cams, pts)
-        # λ-free pair-space gathers, amortized over the λ-retries
-        pair_data = precompute_pair_data(B, pairs) if paired else None
+        # λ-free pair-space gathers, amortized over the λ-retries; sharded, from
+        # the all-gathered W (pair indices are global observation ids)
+        if paired:
+            pair_data = precompute_pair_data(B, pairs, all_gather_cols(B.W, group))
         gnorm = torch.maximum(B.gc.abs().max(), B.gp.abs().max())
         gnorm0 = torch.where(gnorm0 > 0, gnorm0, gnorm)
         cg_tol = config.cg_tol
@@ -238,7 +267,8 @@ def lm_loop(cams0, pts0, obs, ci, pi, mask, n_cameras: int, n_points: int,
                       | (accept & (step_norm < config.step_tol * (x_norm + config.step_tol)))
                       | (lam_next >= config.max_lambda))
 
-            accepted, lam_ok, done = read_flags("lm", accept, lam_next < config.max_lambda, done_t)
+            accepted, lam_ok, done = read_flags("lm", accept, lam_next < config.max_lambda, done_t,
+                                                group=group)
             lam, nu = lam_next, nu_next
             it += 1
 
@@ -289,15 +319,19 @@ def build_solver_plans(problem: BAProblem, config: LMConfig):
     """(assembly plans, pair plan) that ``config.linear_solver`` needs for
     ``problem``, each None where the tier uses none; memoized per problem
     structure. The ``*_pallas`` tiers get the segment plans
-    (``solver/plans.py``); the sparse tiers a symmetric pair plan, with what
-    the kernels walk only for ``schur_sparse_pallas``; the dense-Schur tiers
-    a full (non-symmetric) one."""
+    (``solver/plans.py``), and so does every tier on the card, whose
+    camera- and point-keyed sums are then K1's over them (built once per
+    structure, where ``segment_sum_t`` would sort the point keys at every
+    sum); the sparse tiers a symmetric pair plan, with what the kernels walk
+    only for ``schur_sparse_pallas``; the dense-Schur tiers a full
+    (non-symmetric) one."""
     plans = pairs = None
     tier = config.linear_solver
     paired = tier in SPARSE_TIERS or tier in DENSE_TIERS
-    if tier.endswith("_pallas") or paired:
+    segment_plans = tier.endswith("_pallas") or problem.device.type == "cuda"
+    if segment_plans or paired:
         structure = _structure_key(problem)
-    if tier.endswith("_pallas"):
+    if segment_plans:
         plans = _memoized(
             ("assembly",) + structure,
             lambda: build_plans(problem.cam_idx, problem.pt_idx,
@@ -369,25 +403,28 @@ def _resume_state(problem: BAProblem, path: str):
 
 
 def _solve_chunked(problem: BAProblem, config: LMConfig, plans, pairs, init_state,
-                   chunk: int) -> LMResult:
+                   chunk: int, group=None) -> LMResult:
     """Run ``lm_loop`` ``chunk`` iterations at a time over plans built once.
     Between chunks: with ``nan_guard``, a line for a non-finite state; with
     ``checkpoint_every`` and ``checkpoint_path``, a dump of the whole loop
     state (parameters, λ, ν, iteration, warm-start step, g₀). Stops when
     converged, at ``max_iters``, or when a chunk makes no progress. The
     histories are spliced from the chunks and the accepted counts summed, so
-    the result is the uninterrupted solve's."""
+    the result is the uninterrupted solve's. Sharded (``group``, ``problem``
+    the rank's shard): every rank runs the chunks, rank 0 writes the
+    checkpoints."""
     M = config.max_iters
     it = int(init_state[2]) if init_state is not None else 0
     state = init_state
     cams, pts = problem.cameras, problem.points
     hist = lam_hist = cg_hist = initial_cost = None
     accepted = 0
-    dump = config.checkpoint_every > 0 and bool(config.checkpoint_path)
+    dump = (config.checkpoint_every > 0 and bool(config.checkpoint_path)
+            and (group is None or group.rank == 0))
     while True:
         res = lm_loop(cams, pts, problem.obs_2d, problem.cam_idx, problem.pt_idx, problem.mask,
                       problem.cameras.shape[0], problem.points.shape[0], config, plans=plans,
-                      init_state=state, pairs=pairs, stop_at=it + chunk)
+                      init_state=state, pairs=pairs, stop_at=it + chunk, group=group)
         finite = (torch.isfinite(res.cost) & torch.isfinite(res.cameras).all()
                   & torch.isfinite(res.points).all())
         host_reads["state"] += 1          # one transfer, as f64

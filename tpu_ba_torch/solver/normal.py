@@ -20,6 +20,7 @@ import torch
 
 from tpu_ba_torch.core import resolve_device
 from tpu_ba_torch.residuals.robust import robust_rho, robust_weight
+from tpu_ba_torch.solver.collective import all_reduce_many
 from tpu_ba_torch.solver.plans import cam_segsum_t, pt_segsum_t
 
 
@@ -68,9 +69,12 @@ def apply_irls_weights(r, Jc, Jp, robust_kind: int, robust_scale: float, mask=No
 
 def assemble(r, Jc, Jp, cam_idx, pt_idx, n_cameras: int, n_points: int,
              robust_kind: int = 0, robust_scale: float = 1.0, mask=None,
-             plans=None) -> BlockSystem:
+             plans=None, group=None) -> BlockSystem:
     """Assemble the block system from per-observation residuals/Jacobians
-    (masked rows already zeroed; the IRLS weighting re-applies the mask)."""
+    (masked rows already zeroed; the IRLS weighting re-applies the mask).
+    Sharded (``group``, observations the rank's shard): U, V, g and the cost
+    are the rank's partial sums, all-reduced in one collective; W and the
+    index maps stay the shard's."""
     r, Jc, Jp, cost = apply_irls_weights(r, Jc, Jp, robust_kind, robust_scale, mask)
     O = r.shape[-1]
     dc = Jc.shape[1]
@@ -84,6 +88,7 @@ def assemble(r, Jc, Jp, cam_idx, pt_idx, n_cameras: int, n_points: int,
     U = cam_packed[:dc * dc].reshape(dc, dc, n_cameras).permute(2, 0, 1).contiguous()
     gc = cam_packed[dc * dc:].T.contiguous()
     pt_packed = pt_segsum_t(plans, torch.cat([VtV, gpo], dim=0), pt_idx, n_points)
+    U, gc, pt_packed, cost = all_reduce_many([U, gc, pt_packed, cost], group)
     return BlockSystem(U=U, V=pt_packed[:9], W=W, gc=gc, gp=pt_packed[9:], cost=cost,
                        cam_idx=cam_idx, pt_idx=pt_idx)
 

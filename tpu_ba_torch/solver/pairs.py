@@ -27,9 +27,13 @@ matrix-free (``_heavy_operator``). A non-symmetric plan also serves the dense
 reduced system (``build_schur_t``, ``solve_schur_dense``).
 
 The planning is host numpy and follows the reference branch for branch, so
-the structure can be held against it array for array. Not ported: the
-sharded solve (``axis_name``), which raises NotImplementedError naming its
-ROADMAP item.
+the structure can be held against it array for array.
+
+Sharded (``group``): ``shard_pair_plan`` gives each rank a contiguous slice
+of the seg-sorted pairs and its part of the track layout; each rank reduces
+its slice into the full compact segment space, and ONE all-reduce of the
+(dc², k_pad) blocks per λ-retry replicates S, after which the CG runs on
+every rank with no communication (the reference's keyframe partition).
 """
 
 from __future__ import annotations
@@ -42,15 +46,15 @@ import torch
 
 from tpu_ba_torch.core import _round_up, device_of, to_host
 from tpu_ba_torch.kernels.pairblocks import (PairSchedule, block_products_rows,
-                                             damped_vinv_rows, fused_pair_blocks,
-                                             fused_pair_blocks_plain, pair_schedule)
+                                             damped_vinv_rows, fused_pair_blocks, pair_schedule)
 from tpu_ba_torch.kernels.pcg_band import pcg_banded
-from tpu_ba_torch.kernels.segsum import sorted_segment_sum_t, sorted_segment_sum_t_plain
+from tpu_ba_torch.kernels.segsum import segment_sum_t, sorted_segment_sum_t
 from tpu_ba_torch.kernels.slotband import slot_band_blocks, slot_band_blocks_plain
 from tpu_ba_torch.kernels.trackband import fused_track_blocks, fused_track_blocks_plain
 from tpu_ba_torch.solver import slots as slots_mod
 from tpu_ba_torch.solver import tracks as tracks_mod
 from tpu_ba_torch.solver.batched_linalg import inv_spd_small
+from tpu_ba_torch.solver.collective import all_reduce
 from tpu_ba_torch.solver.normal import BlockSystem, damp_blocks
 from tpu_ba_torch.solver.pcg import pcg
 from tpu_ba_torch.solver.plans import longest_segment
@@ -94,7 +98,10 @@ class PairPlan:
     ``seg_ci`` and ``cj_keys``, keys 0 … C) for K1 in the compact matvec, in
     place of the reference's ``ci_plan`` / ``cj_plan``, and ``ci_longest`` /
     ``cj_longest``, the longest segment of each (K1 picks its schedule from
-    it); on a banded plan with leftover segments, ``left``.
+    it); on a banded plan with leftover segments, ``left``. ``shard`` is
+    (rank, world) on a rank's part of a plan (``shard_pair_plan``), whose
+    pair arrays and ``n_pairs`` are its slice and whose track layout is its
+    part; every other field is the global plan's.
     """
 
     pair_i: torch.Tensor     # (Np,) int32, observation of the row side
@@ -135,6 +142,7 @@ class PairPlan:
     ci_longest: int | None = None
     cj_longest: int | None = None
     left: LeftoverLists | None = None
+    shard: tuple = ()           # (rank, world) of a rank's part (shard_pair_plan)
 
 
 def _leftover_lists(seg_ci: np.ndarray, seg_cj: np.ndarray, n_cameras: int):
@@ -470,6 +478,48 @@ def build_pair_plan(cam_idx, pt_idx, n_obs: int, n_cameras: int, n_points: int, 
         banded=use_banded, band_offsets=band_list, c_pad=c_pad, k_band=k_band)
 
 
+SHARD_PAIR_ARRAYS = ("pair_i", "pair_j", "pair_pt", "pair_key", "pair_seg")
+
+
+def shard_pair_plan(plan: PairPlan, n_dev: int, rank: int, *,
+                    with_kernel_plans: bool = False) -> PairPlan:
+    """Rank ``rank``'s part of ``plan`` for a solve sharded over ``n_dev``
+    ranks (the reference's ``solve_sharded`` pair plan,
+    ``tpu_ba/sharding/distributed.py``): the contiguous slice
+    [rank·n, (rank+1)·n), n = n_pairs / n_dev, of the seg-sorted pair arrays,
+    whose segment ids stay sorted and global, with its own K7 schedule over
+    the global k_pad where ``with_kernel_plans``; the track layout's part
+    (``tracks.shard_track_layout``). Pair and slot indices are global
+    observation ids. The plan must have no slot layout (build it with
+    slots=False, as the reference does: its degree buckets have no sharded
+    form) and a pair count divisible by ``n_dev`` (build it with
+    pad_multiple a multiple of ``n_dev``)."""
+    if plan.n_pairs % n_dev:
+        raise ValueError(f"pair count {plan.n_pairs} not divisible by mesh size {n_dev}; "
+                         f"use a power-of-two mesh or adjust pad_multiple")
+    if plan.slot is not None:
+        raise ValueError("a sharded pair plan takes no slot layout: build it with slots=False")
+    if not 0 <= rank < n_dev:
+        raise ValueError(f"rank {rank} outside [0, {n_dev})")
+    n = plan.n_pairs // n_dev
+    part = {k: getattr(plan, k)[rank * n:(rank + 1) * n].contiguous() for k in SHARD_PAIR_ARRAYS}
+    seg_start = pair_sched = None
+    if with_kernel_plans:
+        seg = to_host(part["pair_seg"]).astype(np.int64)
+        n_real = int((to_host(part["pair_key"]).astype(np.int64)
+                      < plan.n_cameras * plan.n_cameras).sum())
+        starts = np.searchsorted(seg[:n_real], np.arange(plan.k_pad + 1), side="left")
+        device = plan.pair_seg.device
+        seg_start = torch.as_tensor(starts.astype(np.int32), device=device)
+        pair_sched = pair_schedule(starts, device=device)
+    track = None
+    if plan.track is not None:
+        track = tracks_mod.shard_track_layout(plan.track, n_dev, rank,
+                                              with_kernel_plans=with_kernel_plans)
+    return dataclasses.replace(plan, **part, n_pairs=n, seg_start=seg_start,
+                               pair_sched=pair_sched, track=track, shard=(rank, n_dev))
+
+
 class PairData(NamedTuple):
     """λ-free per-linearization gathers, reused across λ-retries.
 
@@ -490,17 +540,20 @@ class PairData(NamedTuple):
     U_t: torch.Tensor | None = None
 
 
-def precompute_pair_data(B: BlockSystem, pairs: PairPlan) -> PairData:
+def precompute_pair_data(B: BlockSystem, pairs: PairPlan, W=None) -> PairData:
     """λ-free per-linearization gathers into pair, track and slot order. The
     BlockSystem is lane-major ((3dc, O) / (9, P)), so these are gathers along
-    the last axis."""
-    packed = torch.cat([B.W[:, pairs.pair_i], B.W[:, pairs.pair_j], B.V[:, pairs.pair_pt]], dim=0)
+    the last axis. ``W`` stands in for ``B.W`` where that is a rank's
+    observation shard: the sharded solve passes the all-gathered W, since
+    pair and slot indices are global observation ids."""
+    W = B.W if W is None else W
+    packed = torch.cat([W[:, pairs.pair_i], W[:, pairs.pair_j], B.V[:, pairs.pair_pt]], dim=0)
     trk_W = trk_V = None
     if pairs.track is not None:
-        trk_W, trk_V = tracks_mod.gather_track_data(B.W, B.V, pairs.track)
+        trk_W, trk_V = tracks_mod.gather_track_data(W, B.V, pairs.track)
     slot_W = slot_V = None
     if pairs.slot is not None:
-        slot_W, slot_V = slots_mod.gather_slot_data(B.W, B.V, pairs.slot)
+        slot_W, slot_V = slots_mod.gather_slot_data(W, B.V, pairs.slot)
         slot_W, slot_V = tuple(slot_W), tuple(slot_V)
     U_t = None
     if pairs.banded:
@@ -510,7 +563,7 @@ def precompute_pair_data(B: BlockSystem, pairs: PairPlan) -> PairData:
         U_t[:, :C] = B.U.permute(1, 2, 0).reshape(dc * dc, C)
     heavy_W = heavy_V = None
     if pairs.n_heavy_pts:
-        heavy_W, heavy_V = B.W[:, pairs.heavy_obs], B.V[:, pairs.heavy_pt_ids]
+        heavy_W, heavy_V = W[:, pairs.heavy_obs], B.V[:, pairs.heavy_pt_ids]
     return PairData(packed, heavy_W, heavy_V, trk_W=trk_W, trk_V=trk_V, slot_W=slot_W,
                     slot_V=slot_V, U_t=U_t)
 
@@ -531,10 +584,10 @@ def _heavy_operator(pair_data: PairData, lam, pairs: PairPlan, dc: int, diag_flo
 
     def term(x):
         wtx = _wt_dot(Wh, x.T[:, heavy_cam], dc)                     # (3, Oh)
-        t = sorted_segment_sum_t_plain(wtx, heavy_seg, Ph + 1)       # (3, Ph+1); keys unsorted
+        t = segment_sum_t(wtx, heavy_seg, Ph + 1)                    # (3, Ph+1); keys unsorted
         u = _matmul_rows_33(Vinv, t)
         z = _w_dot(Wh, u[:, heavy_seg], dc)                          # (dc, Oh)
-        return sorted_segment_sum_t_plain(z, heavy_cam, C).T
+        return segment_sum_t(z, heavy_cam, C, sorted_keys=True).T
 
     diag_h = w_vinv_wt_diag(Wh, Vinv, heavy_cam, heavy_seg, C)
     return term, diag_h
@@ -551,7 +604,7 @@ def _reduce_pairs_t(vals_t, pair_key, n_cameras: int):
     """T_t (dc², C²): segment sum of the pair blocks by camera-pair key (the
     trailing trash segment C² collects the padding)."""
     C2 = n_cameras * n_cameras
-    return sorted_segment_sum_t_plain(vals_t, pair_key, C2 + 1)[:, :C2]
+    return segment_sum_t(vals_t, pair_key, C2 + 1, sorted_keys=True)[:, :C2]
 
 
 def build_schur_t(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData,
@@ -633,8 +686,9 @@ def _compact_blocks(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData,
     if pairs.pair_sched is not None:
         blk = fused_pair_blocks(pair_data.packed, pairs.pair_seg, lam, pairs.k_pad,
                                 pairs.pair_sched, **kw)
-    else:
-        blk = fused_pair_blocks_plain(pair_data.packed, pairs.pair_seg, lam, pairs.k_pad, **kw)
+    else:       # K7's plain version with its sum in a fixed order
+        blk = segment_sum_t(_pair_products_t(pair_data.packed, lam, dc, diag_floor, diag_ceil),
+                            pairs.pair_seg, pairs.k_pad, sorted_keys=True)
     # only the trash column k_pad−1 receives padding pairs: zero it so reads
     # of absent diagonals through diag_pos are exact zeros
     blk[:, -1] = 0.0
@@ -650,7 +704,8 @@ def _compact_blocks(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData,
             assert tl.n_out == pairs.c_pad
             fused_track_blocks(pair_data.trk_W, pair_data.trk_V, lam, tl, out=blk, **kw)
         else:
-            tout = fused_track_blocks_plain(pair_data.trk_W, pair_data.trk_V, lam, tl, **kw)
+            tout = fused_track_blocks_plain(pair_data.trk_W, pair_data.trk_V, lam, tl,
+                                            segment_sum=segment_sum_t, **kw)
             d2 = dc * dc
             cp = pairs.c_pad
             for g in range(tl.dmax):
@@ -665,7 +720,8 @@ def _compact_blocks(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData,
             slot_band_blocks(pair_data.slot_W, pair_data.slot_V, lam, sl, out=blk, **kw)
         else:
             blk[:, :pairs.k_band] += slot_band_blocks_plain(pair_data.slot_W, pair_data.slot_V,
-                                                            lam, sl, **kw)
+                                                            lam, sl, segment_sum=segment_sum_t,
+                                                            **kw)
     return blk
 
 
@@ -703,8 +759,8 @@ def make_banded_matvec(blk, Ul, pairs: PairPlan, dc: int, heavy_term=None):
         if have_left:
             zl = torch.einsum("mnl,nl->ml", lblk, x.T[:, lcj])      # T x by row camera
             zl2 = torch.einsum("mnl,ml->nl", lblk, x.T[:, lci_in])  # Tᵀ x by column camera
-            tl = sorted_segment_sum_t_plain(zl, lci, C + 1)
-            tl2 = sorted_segment_sum_t_plain(zl2, lcj, C + 1)
+            tl = segment_sum_t(zl, lci, C + 1, sorted_keys=True)
+            tl2 = segment_sum_t(zl2, lcj, C + 1)
             y = y - tl[:, :C].T - tl2[:, :C].T
         return y if heavy_term is None else y - heavy_term(x)
 
@@ -737,7 +793,7 @@ def make_compact_matvec(blk, Ul, pairs: PairPlan, dc: int, heavy_term=None):
             t = sorted_segment_sum_t(z, pairs.seg_ci, C + 1, pairs.ci_start,
                                      longest=pairs.ci_longest)
         else:
-            t = sorted_segment_sum_t_plain(z, pairs.seg_ci, C + 1)
+            t = segment_sum_t(z, pairs.seg_ci, C + 1, sorted_keys=True)
         y = y - t[:, :C].T
         if pairs.symmetric:
             z2 = (blk3 * x.T[:, seg_ci_in][:, None, :]).sum(dim=0) * nondiag[None, :]
@@ -745,7 +801,7 @@ def make_compact_matvec(blk, Ul, pairs: PairPlan, dc: int, heavy_term=None):
                 t2 = sorted_segment_sum_t(z2, pairs.cj_keys, C + 1, pairs.cj_start, perm=perm,
                                           longest=pairs.cj_longest)
             else:
-                t2 = sorted_segment_sum_t_plain(z2, seg_cj, C + 1)      # unsorted keys
+                t2 = segment_sum_t(z2, seg_cj, C + 1)                  # unsorted keys
             y = y - t2[:, :C].T
         return y if heavy_term is None else y - heavy_term(x)
 
@@ -754,7 +810,7 @@ def make_compact_matvec(blk, Ul, pairs: PairPlan, dc: int, heavy_term=None):
 
 def solve_schur_sparse(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData | None = None,
                        *, cg_max_iters: int, cg_tol, cg_x0=None, diag_floor: float,
-                       diag_ceil: float, plans=None, axis_name=None,
+                       diag_ceil: float, plans=None, group=None,
                        pcg_kernel: bool | None = None, precond: str = "jacobi"):
     """Linear solve on the block-sparse explicit reduced camera system.
 
@@ -777,10 +833,19 @@ def solve_schur_sparse(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData
     by the reference's own conditions; nothing else gives way to it. On the
     CPU the kernel route is the plain version of the kernel in f32 and the
     host loop in f64, as the reference's f64 is; f64 on the card is refused
-    by the kernel's wrapper."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "the sharded solve (axis_name) is not ported yet: ROADMAP queue 1, item 8")
+    by the kernel's wrapper.
+
+    Sharded (``group``, ``solver/collective.py``): ``pairs`` is the rank's
+    part (``shard_pair_plan``) and ``pair_data`` its gathers from the
+    all-gathered W; B's U, V, g are replicated, its W and index maps the
+    rank's shard. The blocks are all-reduced once, right after the rank's
+    pair and track partials are reduced into them and before anything
+    replicated enters them; the right-hand side and the back-substitution
+    all-reduce their observation sums; the CG runs replicated."""
+    if group is not None and group.world > 1 and not pairs.shard:
+        raise ValueError("a sharded solve needs each rank's part of the pair plan "
+                         "(shard_pair_plan): the whole plan's blocks on every rank would be "
+                         "summed world-size times")
     if precond not in ("jacobi", "tridiag"):
         raise ValueError(f"precond must be 'jacobi' or 'tridiag', got {precond!r}")
     if pair_data is None:
@@ -791,10 +856,10 @@ def solve_schur_sparse(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData
     use_kernel = (pairs.banded and want_kernel and pairs.n_heavy_pts == 0
                   and (B.U.dtype == torch.float32 or B.U.device.type == "cuda"))
 
-    blk = _compact_blocks(B, lam, pairs, pair_data, diag_floor, diag_ceil)
+    blk = all_reduce(_compact_blocks(B, lam, pairs, pair_data, diag_floor, diag_ceil), group)
     Ul, Vl_pts = damp_blocks(B, lam, diag_floor, diag_ceil)
     Vinv_pts = inv3x3_rows(Vl_pts)
-    b = schur_rhs(B, Vinv_pts, plans)
+    b = schur_rhs(B, Vinv_pts, plans, group)
 
     if use_kernel and precond == "jacobi":
         # fold-damp route: K4 takes the undamped U_t and computes the damped
@@ -802,7 +867,7 @@ def solve_schur_sparse(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData
         dx_cam, cg_iters, ok = pcg_banded(
             blk, None, None, b, pairs, max_iters=cg_max_iters, tol=cg_tol, x0=cg_x0,
             U_t=pair_data.U_t, lam=lam, diag_floor=diag_floor, diag_ceil=diag_ceil)
-        return dx_cam, back_substitute(B, Vinv_pts, dx_cam, plans), cg_iters, ok
+        return dx_cam, back_substitute(B, Vinv_pts, dx_cam, plans, group), cg_iters, ok
 
     # the diagonal of T: on a banded plan band slot (offset 0, c), a plain slice
     diag_T = blk[:, :C] if pairs.banded else blk[:, pairs.diag_pos.long()]
@@ -821,7 +886,7 @@ def solve_schur_sparse(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData
     if use_kernel:
         dx_cam, cg_iters, ok = pcg_banded(blk, Ul, Minv, b, pairs, max_iters=cg_max_iters,
                                           tol=cg_tol, x0=cg_x0, tridiag=pcr)
-        return dx_cam, back_substitute(B, Vinv_pts, dx_cam, plans), cg_iters, ok
+        return dx_cam, back_substitute(B, Vinv_pts, dx_cam, plans, group), cg_iters, ok
 
     if pairs.banded:
         matvec = make_banded_matvec(blk, Ul, pairs, dc, heavy_term)
@@ -836,5 +901,5 @@ def solve_schur_sparse(B: BlockSystem, lam, pairs: PairPlan, pair_data: PairData
             return torch.einsum("cij,cj->ci", Minv, r)
 
     dx_cam, cg_iters, ok = pcg(matvec, b, apply_minv, max_iters=cg_max_iters, tol=cg_tol,
-                               x0=cg_x0)
-    return dx_cam, back_substitute(B, Vinv_pts, dx_cam, plans), cg_iters, ok
+                               x0=cg_x0, group=group)
+    return dx_cam, back_substitute(B, Vinv_pts, dx_cam, plans, group), cg_iters, ok

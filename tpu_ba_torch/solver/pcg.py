@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from tpu_ba_torch.solver.collective import agree
+
 # device→host reads since the last reset: "cg" per CG iteration test,
 # "lm" per λ-retry (accept / λ ceiling / done), "state" per read of the loop
 # state at a resumed solve's or a chunk's boundary
@@ -26,21 +28,24 @@ def reset_host_reads() -> None:
         host_reads[k] = 0
 
 
-def read_flags(kind: str, *flags) -> list[bool]:
-    """Bring boolean device scalars to the host in one transfer."""
+def read_flags(kind: str, *flags, group=None) -> list[bool]:
+    """Bring boolean device scalars to the host in one transfer; under a
+    sharded solve's ``group``, checked equal on every rank
+    (``collective.agree``)."""
     host_reads[kind] += 1
-    return [bool(v) for v in torch.stack(flags).tolist()]
+    return agree(torch.stack(flags), group)
 
 
 def _safe(x):
     return torch.where(torch.abs(x) < 1e-30, torch.full_like(x, 1e-30), x)
 
 
-def pcg(matvec, b, precond, *, max_iters: int, tol, x0=None):
+def pcg(matvec, b, precond, *, max_iters: int, tol, x0=None, group=None):
     """Solve A x = b with preconditioned CG.
 
     Returns (x, iterations_used: int, ok: 0-dim bool tensor); ``ok`` is
-    False when a breakdown was hit."""
+    False when a breakdown was hit. ``group``: the sharded solve's, whose
+    ranks must agree on every iteration's flag."""
     x = torch.zeros_like(b) if x0 is None else x0
 
     def dot(a, c):
@@ -54,7 +59,7 @@ def pcg(matvec, b, precond, *, max_iters: int, tol, x0=None):
     ok = torch.ones((), dtype=torch.bool, device=b.device)
     k = 0
     while k < max_iters:
-        (go,) = read_flags("cg", (dot(r, r) > tol2) & ok)
+        (go,) = read_flags("cg", (dot(r, r) > tol2) & ok, group=group)
         if not go:
             break
         Ap = matvec(p)

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from tpu_ba_torch.kernels.linearize import LinSchedule, linearize_schedule
-from tpu_ba_torch.kernels.segsum import sorted_segment_sum_t, sorted_segment_sum_t_plain
+from tpu_ba_torch.kernels.segsum import segment_sum_t, sorted_segment_sum_t
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,9 +79,11 @@ def build_plans(cam_idx, pt_idx, n_cameras: int, n_points: int) -> AssemblyPlans
 
 def cam_segsum_t(plans: AssemblyPlans | None, values_t, cam_idx, n_cameras: int):
     """Camera-keyed segment sum, lane-major: (D, O) → (D, C). With plans it
-    goes through the K1 wrapper; without, through plain PyTorch."""
+    goes through the K1 wrapper; without, through ``segment_sum_t`` (the
+    plain version on the CPU, K1 over starts built on the device on the
+    card)."""
     if plans is None:
-        return sorted_segment_sum_t_plain(values_t, cam_idx, n_cameras)
+        return segment_sum_t(values_t, cam_idx, n_cameras, sorted_keys=True)
     return sorted_segment_sum_t(values_t, cam_idx, n_cameras, plans.cam_start,
                                 longest=plans.cam_longest)
 
@@ -91,6 +93,6 @@ def pt_segsum_t(plans: AssemblyPlans | None, values_t, pt_idx, n_points: int):
     over the point-sorted keys, reading the values through ``perm_pt`` (one
     kernel, no gathered copy)."""
     if plans is None:
-        return sorted_segment_sum_t_plain(values_t, pt_idx, n_points)
+        return segment_sum_t(values_t, pt_idx, n_points)
     return sorted_segment_sum_t(values_t, plans.pt_sorted_keys, n_points, plans.pt_start,
                                 perm=plans.perm_pt, longest=plans.pt_longest)

@@ -12,8 +12,10 @@ All planning is host numpy. In place of the reference's one-hot work list
 (``plan``) the layout carries ``key_start``, the CSR starts of the sorted
 start-camera ``keys``: the points that write band column c are the
 contiguous run with keys in [c−dmax+1, c], which is all the CUDA kernel
-needs. Not ported here: the shard/unstack helpers (with the distributed
-solve).
+needs. ``shard_track_layout`` gives one rank of a sharded solve its
+contiguous run of the tracked points (the reference's
+``shard_stack_track_layout`` and ``unstack_track_layout``: one process per
+rank, so nothing is stacked).
 """
 
 from __future__ import annotations
@@ -147,6 +149,39 @@ def build_track_layout(cam_idx, pt_idx, n_obs: int, n_cameras: int, n_points: in
         dict(slot_idx=slot_idx, slot_mask=slot_mask, vperm=vperm, keys=keys),
         dmax=dmax, n_tracked=nt, pt_pad=pt_pad, n_out=int(c_pad),
         with_kernel_plans=with_kernel_plans, device=device)
+
+
+def shard_track_layout(layout: TrackLayout, n_dev: int, rank: int, *, tile: int = 2048,
+                       with_kernel_plans: bool = True) -> TrackLayout:
+    """Rank ``rank``'s part of a global layout split over ``n_dev`` ranks: the
+    contiguous columns [rank·nd, (rank+1)·nd) of the start-sorted tracked
+    points, nd = ceil(n_tracked / n_dev), padded to a multiple of ``tile``.
+    The tracked points are sorted by start camera, so the part is a
+    contiguous band-row range and its band partial sums with the other
+    ranks' (and the pair blocks') in the sharded solve's one all-reduce.
+    ``slot_idx`` keeps GLOBAL observation ids: the sharded solve gathers from
+    the all-gathered W. The padding columns (mask 0) repeat the part's last
+    key (or the layout's last, for an empty part), so the keys stay sorted;
+    ``key_start`` covers the part's real columns, whose count is the part's
+    ``n_tracked``."""
+    nt = layout.n_tracked
+    nd = -(-max(nt, 1) // n_dev)
+    pt_pad = _round_up(nd, tile)
+    lo, hi = rank * nd, min((rank + 1) * nd, nt)
+    w = max(hi - lo, 0)
+    keys = to_host(layout.keys)
+    fill = int(keys[hi - 1]) if w else int(keys[max(nt - 1, 0)])
+
+    def part(a):
+        a = to_host(a)[..., lo:lo + w]
+        return np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, pt_pad - w)])
+
+    return track_layout_from_numpy(
+        dict(slot_idx=part(layout.slot_idx), slot_mask=part(layout.slot_mask),
+             vperm=part(layout.vperm),
+             keys=np.concatenate([keys[lo:lo + w], np.full(pt_pad - w, fill, keys.dtype)])),
+        dmax=layout.dmax, n_tracked=w, pt_pad=pt_pad, n_out=layout.n_out,
+        with_kernel_plans=with_kernel_plans, device=layout.slot_idx.device)
 
 
 def gather_track_data(W, V, layout: TrackLayout):
