@@ -10,7 +10,8 @@ Phases, one line each (the end-to-end phase a few):
                same inputs, at the ladybug-1723 shapes of the main path, with
                the median time of kernel and plain version (f32, CUDA events)
                and the least time the card could take (bytes over 3.35 TB/s or
-               operations over 67 TFLOP/s, whichever is larger). K1–K3 on the
+               operations over 67 TFLOP/s, whichever is larger, both counted by
+               tpu_ba_torch/bench/roofline.py). K1–K3 on the
                problem's initial parameters, over K2's and K3's piece
                schedule (printed), K2 and K3 timed as replayed CUDA graphs
                and repeated bit for bit; K7, K5, K6, K4 and K8 on that
@@ -86,6 +87,14 @@ Phases, one line each (the end-to-end phase a few):
                data/goldens/venice-1778-community.json, K7, K1, K2, K3
                launched and K4–K6, K8 not, the same cost and CG total on the
                repeat. Needs about 10 GB of device memory.
+  bench    — the benchmark harness as subprocesses: python -m tpu_ba_torch.cli
+               bench (ladybug-1723, the headline) and python -m
+               tpu_ba_torch.bench.harness at trafalgar-257's golden config
+               (Huber, 60 iterations), each with its CPU baseline: the line
+               under a _1gpu metric, the detail naming this card, within 1% of
+               the golden, a roofline share in (0, 1.05], peak device memory,
+               the path's kernels launched (the headline: K1–K7); each line and
+               the phase's wall time printed.
 Then one JSON line of per-kernel results, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -182,6 +191,16 @@ PATHS = (
      ("segsum", "linearize", "cost", "pcg_band_given") + BAND_BUILD),
 )
 VENICE_KERNELS = ("segsum", "linearize", "cost", "pairblocks")
+# phase bench: (name, the module and flags run as a subprocess, the metric of
+# its line, kernels it must launch)
+BENCH_RUNS = (
+    ("headline", ["tpu_ba_torch.cli", "bench"], "ba_iters_per_sec_ladybug_1723_1gpu",
+     {"segsum", "linearize", "cost", "pcg_band"} | set(BAND_BUILD)),
+    ("trafalgar-257 huber", ["tpu_ba_torch.bench.harness", "--problem", "trafalgar-257",
+                             "--robust", "huber", "--max-iters", "60"],
+     "ba_iters_per_sec_trafalgar_257_1gpu", {"segsum", "linearize", "cost", "pcg_band",
+                                             "pairblocks"}),
+)
 GOLDENS = os.path.join(HERE, "data", "goldens")
 # the pose graph's ring ("thousands of nodes at most", tpu_ba/posegraph/solver.py)
 # and config 4 of the SfM front end (scripts/sfm_sequence_bench.py)
@@ -189,11 +208,7 @@ PG_NODES = 2000
 SFM_FRAMES, SFM_POINTS, SFM_SEED = 60, 600, 4
 # config 4's bar: the reference registered 60/60 at 0.90 px and ATE 0.080 (sfm_bench.json)
 SFM_MIN_FRAMES, SFM_MAX_RMSE_PX, SFM_MAX_ATE = 57, 2.0, 0.25
-# the card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# bytes/s and f32 operations/s outside the tensor cores
-PEAK_BYTES_S = 3.35e12
 L2_BYTES = 50 << 20
-PEAK_F32_OPS_S = 67e12
 # the pair plan of the ladybug-1723 ring stand-in, as the reference builds it
 EXPECTED_PLAN = {
     "band_offsets": tuple(range(13)) + (1719, 1720, 1721, 1722), "c_pad": 1792,
@@ -266,18 +281,6 @@ def describe_lin_schedule(s):
             f"{int(n_pieces.max())} pieces")
 
 
-def lin_bounds(C, P, O, s):
-    """(K2's, K3's) (bytes, operations): cameras, points, observations, point
-    index, mask and the schedule read once; K2 writes U, gc and 40 rows an
-    observation in about 600 operations each (projection, Jacobians,
-    W/VtV/gp products, U/gc sums), K3 a scalar in about 100. K3 reads no
-    camera index: its pieces name the camera."""
-    n_pieces = s.pieces.shape[1]
-    reads = 4 * (9 * C + 3 * P + 2 * O + O) + O + 4 * (3 * n_pieces + C + 1 + s.empty.shape[0])
-    return ((reads + 4 * (81 * C + 9 * C + 40 * O), 600 * O),
-            (4 * (9 * C + 3 * P + 2 * O + O) + O + 4 * 3 * n_pieces + 4, 100 * O))
-
-
 def describe_schedule(s):
     """K7's schedule (``PairSchedule``) in words."""
     from tpu_ba_torch.kernels.pairblocks import PIECE_PAIRS
@@ -285,13 +288,6 @@ def describe_schedule(s):
             f"{s.items.shape[1]} short items; {s.fold_seg.shape[0]} split segments in "
             f"{s.pieces.shape[1]} pieces of at most {PIECE_PAIRS} pairs; {s.empty.shape[0]} empty "
             f"segments; longest segment {s.longest} pairs")
-
-
-def bound(n_bytes, n_ops):
-    """(least ms the card could take, what bounds it): the larger of the
-    bytes moved over the memory rate and the operations over the f32 peak."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_OPS_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def err(out, ref):
@@ -900,6 +896,69 @@ def phase_repeat(torch, problem, golden_cfg):
                                  f"launches are not K1's alone: {launched}")
 
 
+def phase_bench(kind):
+    """The benchmark harness on the card, each run a subprocess: ``python -m
+    tpu_ba_torch.cli bench`` (the headline: ladybug-1723 through
+    schur_sparse_pallas at the golden's config) and the trafalgar-257 golden's
+    config through ``python -m tpu_ba_torch.bench.harness``. Each must exit 0
+    and print its line under a ``_1gpu`` metric; its detail must name this
+    card, stay within 1% of the f64 golden, hold a roofline share in
+    (0, 1.05], a peak of device memory above 0 and the CPU baseline; the
+    headline must launch K1–K7."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    try:
+        for i, (name, cmd, metric, kernels) in enumerate(BENCH_RUNS):
+            detail_path = os.path.join(tmp, f"detail{i}.json")
+            cmd = [sys.executable, "-m", *cmd, "--detail-out", detail_path]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=900)
+            wall_s = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"{' '.join(cmd)} exited {proc.returncode}:\n{proc.stderr}")
+            line = proc.stdout.strip().splitlines()[-1]
+            say("bench", f"{name}: {line}")
+            out = json.loads(line)
+            with open(detail_path) as fh:
+                d = json.load(fh)
+            if not (out["metric"] == metric and out["value"] > 0 and d["device"] == kind):
+                raise AssertionError(f"{name}: the line {out} or the device {d['device']} is "
+                                     f"not this card's ({kind})")
+            gap = d["f64_parity"]["final_cost_gap_pct"]
+            if not abs(gap) < 1.0:
+                raise AssertionError(f"{name}: final cost {gap}% from the golden (limit 1%)")
+            launched = {k for k, v in d["launches"].items() if v}
+            if not kernels <= launched:
+                raise AssertionError(f"{name}: launched {sorted(launched)}, the path's kernels "
+                                     f"are {sorted(kernels)}")
+            roof, mem, bl = d["roofline"], d["device_memory"], d["baseline"]
+            if not 0.0 < roof["share_of_peak"] <= 1.05:
+                raise AssertionError(f"{name}: roofline share {roof['share_of_peak']} outside "
+                                     f"(0, 1.05]")
+            unbilled = [k for k in launched if not roof["bytes_by_kernel"][k] > 0]
+            if unbilled:
+                raise AssertionError(f"{name}: launched {unbilled} with no bytes counted")
+            if not (mem["max_memory_allocated"] > 0 and bl is not None
+                    and out["vs_baseline"] > 0):
+                raise AssertionError(f"{name}: peak memory {mem}, baseline {bl}")
+            say("bench", f"{name}: {d['lm_iters']} LM iterations ({d['lm_accepted']} accepted), "
+                         f"cg_total {d['cg_total']}, {d['iters_per_sec']:.3f} LM it/s (best of 3, "
+                         f"{d['run_s']:.4f} s; first call {d['first_call_s']:.3f} s, build "
+                         f"{d['build_s']:.3f} s); gap {gap:+.6f}% from the f64 golden; roofline "
+                         f"share {roof['share_of_peak']:.4f} ({roof['bytes_total']} bytes over "
+                         f"{roof['peak_gbps']:g} GB/s) at {d['power_limit_w']} W; peak "
+                         f"{mem['max_memory_allocated'] / 2**20:.1f} MiB allocated; launches "
+                         f"{d['launches']}; PCG forms {d['pcg_forms']}; bytes by kernel "
+                         f"{roof['bytes_by_kernel']}; host reads {d['host_reads']}; baseline "
+                         f"{bl['sec_per_iter']:.3f} s an iteration ({bl['iters_run']} run), "
+                         f"vs_baseline {d['vs_baseline_speedup']:.1f}; {wall_s:.3f} s the whole "
+                         f"process")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def np_equal(a, t):
     """A host array equal, in dtype, shape and values, to a tensor."""
     b = t.detach().cpu().numpy()
@@ -916,6 +975,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     os.chdir(HERE)
+    from tpu_ba_torch.bench import roofline
     from tpu_ba_torch.core import LMConfig, make_problem
     from tpu_ba_torch.io.bal import make_bal_like_problem
     from tpu_ba_torch.io.synthetic import make_synthetic_problem
@@ -982,8 +1042,9 @@ def main() -> int:
     results = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                    "bound_ms": 0.0, "bound_by": "bytes", "library_ms": None} for k in TOL}
 
-    def set_bound(name, n_bytes, n_ops):
-        results[name]["bound_ms"], results[name]["bound_by"] = bound(n_bytes, n_ops)
+    def set_bound(name, counts):
+        """The kernel's bound from its (bytes, operations) (``bench/roofline.py``)."""
+        results[name]["bound_ms"], results[name]["bound_by"] = roofline.bound(*counts)
 
     def record(name, abs_err, rel_err, what, tol=None):
         tol = TOL[name] if tol is None else tol
@@ -1043,11 +1104,8 @@ def main() -> int:
             fig["index_then_kernel_ms"] = device_ms(torch, [lambda v=v: old_route(v)
                                                             for v in sets])
             line = f", index then K1 {fig['index_then_kernel_ms']:.4f} ms"
-        # values, CSR starts and perm read once, sums written once; one add a value
         sched = group_log2(n_obs, n_out, D, longest, fill_threads(dev), perm is not None)
-        fig["bound_ms"], b_by = bound(
-            4 * (D * n_obs + (n_obs if perm is not None else 0) + n_out + 1 + D * n_out),
-            D * n_obs)
+        fig["bound_ms"], b_by = roofline.bound(*roofline.segsum_counts(D, n_obs, n_out, perm is not None))
         say("kernel", f"K1 segsum {what}: rel err {r:.2e} (tol {TOL['segsum']:.0e}), abs {a:.2e}; "
                       f"{fig['ms']:.4f} ms over {len(sets)} rotating copies ({fig['ms_l2']:.4f} "
                       f"from L2, {fig['ms_eager']:.4f} launched call by call from Python), "
@@ -1149,9 +1207,9 @@ def main() -> int:
                 torch, lambda: fused_linearize_assemble_plain(*args32, **kw), reps=5)
             results["cost"]["plain_ms"] = median_ms(
                 torch, lambda: fused_cost_plain(*args32, **kw), reps=5)
-            (b2, o2), (b3, o3) = lin_bounds(C, P, O, lsched)
-            set_bound("linearize", b2, o2)
-            set_bound("cost", b3, o3)
+            k2_counts, k3_counts = roofline.lin_counts(C, P, O, lsched)
+            set_bound("linearize", k2_counts)
+            set_bound("cost", k3_counts)
             r2, r3 = results["linearize"], results["cost"]
             line += (f"; K2 {r2['ms']:.4f} ms ({r2['ms_l2']:.4f} from L2), plain "
                      f"{r2['plain_ms']:.4f} ms, bound {r2['bound_ms']:.4f} ms; K3 "
@@ -1211,16 +1269,6 @@ def main() -> int:
     pd = pairs_mod.precompute_pair_data(B, plan)
     pd64 = pairs_mod.precompute_pair_data(B64, plan)
     kw = dict(dc=9, diag_floor=cfg_floor, diag_ceil=cfg_ceil)
-    n_real = int((plan.pair_key < C * C).sum())
-    trk_deg = tl.slot_mask.sum(0)                           # slots a tracked point has
-    slot_deg = [m.sum(0) for m in sl.slot_mask]
-
-    def pair_ops(deg):
-        """Operations of the damped products of points with ``deg`` slots:
-        the 3×3 inverse (60), W_a·V⁻¹ for each slot (135) and a 9×9 block
-        with its accumulation for each slot pair a ≤ b (486)."""
-        return float((60 * (deg > 0) + 135 * deg + 486 * deg * (deg + 1) / 2).sum())
-
     band_calls = {
         "pairblocks": (
             lambda d, l, p: fused_pair_blocks(d.packed, p.pair_seg, l, p.k_pad, p.pair_sched,
@@ -1311,18 +1359,9 @@ def main() -> int:
                   f"({results['slotband']['ms_l2']:.4f} from L2); the whole band build (K7, "
                   f"then K5 and K6 adding into the band): {build_ms:.4f} ms")
     del band_buf, w_sets, tw_sets
-    # inputs read once, outputs written once (K6: its plan is inc_start and inc)
-    set_bound("pairblocks", 4 * (63 * plan.n_pairs + plan.k_pad + 1 + 1 + 81 * plan.k_pad),
-              n_real * (60 + 135 + 486))
-    # (K5: W and the mask, V, key_start, λ read; the band cells of its dmax
-    # offsets read and written)
-    set_bound("trackband", 4 * ((27 + 1) * tl.dmax * tl.pt_pad + 9 * tl.pt_pad + plan.c_pad + 2
-                                + 2 * 81 * tl.dmax * plan.c_pad), pair_ops(trk_deg))
-    set_bound("slotband",
-              4 * (sum((27 + 2) * d * pk + 9 * pk + plan.c_pad + 1 + inc.numel()
-                       for d, pk, inc in zip(sl.degrees, sl.pt_pad, sl.inc))
-                   + 17 + 1 + 81 * plan.k_band),
-              sum(pair_ops(d) for d in slot_deg))
+    set_bound("pairblocks", roofline.pairblocks_counts(plan))
+    set_bound("trackband", roofline.trackband_counts(plan))
+    set_bound("slotband", roofline.slotband_counts(plan))
     for name, k in (("pairblocks", "K7"), ("trackband", "K5"), ("slotband", "K6")):
         say("kernel", f"{k} {name}: {results[name]['ms']:.4f} ms, plain "
                       f"{results[name]['plain_ms']:.4f} ms, bound {results[name]['bound_ms']:.4f} "
@@ -1442,12 +1481,7 @@ def main() -> int:
         torch, lambda: pcg_banded_plain(blk, None, None, rhs, plan, max_iters=gmax, tol=gtol,
                                         **pkw), reps=3, warmup=1)
     pcg_mod.host_reads["cg"] = reads0
-    # the band, U_t, b and x0 read once, x written once; per iteration a 9×9
-    # product for each camera (U_λ, M⁻¹) and each valid band cell, forward and
-    # transposed, plus the vector updates; the prologue's 9×9 Gauss–Jordan
-    cells = sum(2 * max(C - o, 0) if o else C for o in plan.band_offsets)
-    set_bound("pcg_band", 4 * (81 * plan.k_band + 81 * plan.c_pad + 3 * 9 * C + 2),
-              (kt + 1) * (162 * (cells + 2 * C) + 12 * 9 * C) + 2 * 9 * 9 * 18 * C)
+    set_bound("pcg_band", roofline.pcg_band_counts(plan, kt))
     results["pcg_band"]["iterations"] = kt
     results["pcg_band"]["ms_per_cg_iteration"] = per_iter_ms
     results["pcg_band"]["ms_per_cg_iteration_streaming"] = per_iter_str
@@ -1604,11 +1638,7 @@ def main() -> int:
     pcg_mod.host_reads["cg"] = reads0
     factor_ms = median_ms(torch, lambda: pcr_factor(*sysd["tri"]), reps=5, warmup=1)
     levels = int(sysd["pcr"][0].shape[0])
-    # the band, Ul, P, Q, D⁻¹ (as given: (C, 9, 9) blocks), b and x0 read once,
-    # x written once; per iteration K4's products and, per PCR level, two 9×9
-    # products a camera, then the last block diagonal
-    set_bound("pcg_band_given", 4 * (81 * plan.k_band + 81 * C * (2 + 2 * levels) + 3 * 9 * C + 1),
-              (kt8 + 1) * (162 * (cells + C) + 162 * C * (2 * levels + 1) + 12 * 9 * C))
+    set_bound("pcg_band_given", roofline.pcg_band_given_counts(plan, levels, kt8))
     res8["iterations"] = kt8
     res8["ms_per_cg_iteration"] = k8_per_iter
     res8["ms_per_cg_iteration_streaming"] = k8_per_iter_str
@@ -1870,7 +1900,7 @@ def main() -> int:
         lambda s=s: fused_linearize_assemble(tp.cameras, *s, tp.cam_idx, tp.pt_idx, tp.mask,
                                              tplans.cam_start, sched=tsched)
         for s in input_copies((tp.points, tp.obs_2d))])
-    results["linearize"]["bound_ms_trafalgar"], _ = bound(*lin_bounds(
+    results["linearize"]["bound_ms_trafalgar"], _ = roofline.bound(*roofline.lin_counts(
         tp.n_cameras, tp.n_points, tp.obs_2d.shape[0], tsched)[0])
     say("huber", f"K2 at trafalgar-257's shape ({describe_lin_schedule(tsched)}): "
                  f"{results['linearize']['ms_trafalgar']:.4f} ms (replayed CUDA graphs over "
@@ -1954,8 +1984,7 @@ def main() -> int:
         vpd.packed, vplan.pair_seg, lam32, kp, vplan.pair_sched, **kw7), reps=10)
     r7["plain_ms_venice"] = median_ms(torch, lambda: fused_pair_blocks_plain(
         vpd.packed, vplan.pair_seg, lam32, kp, **kw7), reps=3, warmup=1)
-    r7["bound_ms_venice"], by7 = bound(4 * (63 * vplan.n_pairs + kp + 2 + 81 * kp),
-                                       n_real * (60 + 135 + 486))
+    r7["bound_ms_venice"], by7 = roofline.bound(*roofline.pairblocks_counts(vplan))
     say("venice", f"K7 pairblocks at this shape: {r7['ms_venice']:.4f} ms, plain "
                   f"{r7['plain_ms_venice']:.3f} ms, bound {r7['bound_ms_venice']:.4f} ms ({by7})")
     del VB, vpd
@@ -1991,7 +2020,7 @@ def main() -> int:
     r2 = results["linearize"]
     r2["ms_venice"] = median_ms(torch, lambda: fused_linearize_assemble(
         *vargs, vplans.cam_start, sched=vsched), reps=10)
-    r2["bound_ms_venice"], _ = bound(*lin_bounds(Cv, Pv, Ov, vsched)[0])
+    r2["bound_ms_venice"], _ = roofline.bound(*roofline.lin_counts(Cv, Pv, Ov, vsched)[0])
     say("venice", f"K2 linearize at this shape: {r2['ms_venice']:.4f} ms (eager events), bound "
                   f"{r2['bound_ms_venice']:.4f} ms")
     v_launches, v_fig, _ = run_path(vp, "venice-1778-community schur_sparse_pallas", vcfg,
@@ -2003,6 +2032,10 @@ def main() -> int:
         t0 = time.perf_counter()
         phase(torch)
         say(name, f"phase wall time {time.perf_counter() - t0:.3f} s")
+    # the benchmark harness, through the command line and its own entry point
+    t0 = time.perf_counter()
+    phase_bench(kind)
+    say("bench", f"phase wall time {time.perf_counter() - t0:.3f} s")
 
     # max_rel_err is the number held to its tolerance; max_abs_err is in the
     # outputs' own units (K2's U entries reach ~4e11, so its absolute error is

@@ -1541,3 +1541,38 @@ def test_rank_linearize_zeroes_the_cameras_outside_its_shard(dev):
         gc_sum += gc
     assert _rel_err(U_sum, U_all.double()) <= 1e-5
     assert _rel_err(gc_sum, gc_all.double()) <= 1e-5
+
+
+def test_bench_harness_quick_on_the_card(dev, tmp_path, capsys):
+    """``tpu_ba_torch.bench.harness --quick`` on the card: its line under the
+    card's ``_1gpu`` metric, the detail naming the card and its power limit,
+    every kernel of the path launched in a timed solve (ladybug-49's plan
+    has a track layout and no slot layout: K1–K5 and K7), the roofline share
+    in (0, 1.05], peak device memory, the CPU baseline."""
+    import json
+
+    from tpu_ba_torch.bench import harness, roofline
+
+    path = tmp_path / "detail.json"
+    assert harness.main(["--quick", "--detail-out", str(path)]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    detail = json.loads(path.read_text())
+    assert out["metric"] == "ba_iters_per_sec_ladybug_49_1gpu" and out["value"] > 0
+    assert detail["device"] == torch.cuda.get_device_name(dev)
+    assert detail["power_limit_w"] > 0 and detail["build_s"] >= 0
+    p, _ = make_bal_like_problem("ladybug-49", dtype=torch.float32, device=dev)
+    _, plan = build_solver_plans(p, harness.build_config(harness.parse_args(["--quick"])))
+    want = ({"segsum", "linearize", "cost", "pcg_band", "pairblocks"}
+            | ({"trackband"} if plan.track is not None else set())
+            | ({"slotband"} if plan.slot is not None else set()))
+    assert {k for k, v in detail["launches"].items() if v} == want
+    # the bytes each launch of K4 must move, once a call in its resident form
+    launched = detail["launches"]
+    assert detail["pcg_forms"]["resident"] == launched["pcg_band"]
+    by_kernel = detail["roofline"]["bytes_by_kernel"]
+    assert by_kernel["pcg_band"] == launched["pcg_band"] * roofline.pcg_band_bytes(plan)
+    assert all(by_kernel[k] > 0 for k in want)
+    assert 0.0 < detail["roofline"]["share_of_peak"] <= 1.05
+    assert detail["device_memory"]["max_memory_allocated"] > 0
+    assert detail["baseline"]["iters_run"] == 2 and out["vs_baseline"] > 0
+    assert abs(detail["f64_parity"]["final_cost_gap_pct"]) < 1.0

@@ -49,6 +49,7 @@ MODULES = [
     "tpu_ba_torch.sharding", "tpu_ba_torch.sharding.distributed",
     "tpu_ba_torch.sharding.multihost", "tpu_ba_torch.sharding.launch",
     "tpu_ba_torch.solver.collective", "tpu_ba_torch.bench.cpu_baseline",
+    "tpu_ba_torch.bench.harness", "tpu_ba_torch.bench.roofline",
 ]
 
 

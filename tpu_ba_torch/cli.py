@@ -9,14 +9,16 @@ Usage:
         --num-processes 2 --process-id 0 --solver schur_sparse_pallas    (and id 1)
     python -m tpu_ba_torch.cli sfm --frames 8 --points 300 --out scene.txt
     python -m tpu_ba_torch.cli posegraph --nodes 50 --noise 0.03
+    python -m tpu_ba_torch.cli bench [--quick] [--problem NAME] [--device cpu]
 
 Each prints one JSON line with its result (a sharded ``ba``: rank 0 alone)
 and runs on the CUDA card unless ``--device`` names another; a sharded rank
 takes the card ``cuda:{rank % device_count}``. ``ba --sharded`` runs one
 process per rank; without ``--coordinator`` it is a group of one on this
 process's device, where the reference's single process spans every local
-device. The reference's ``bench`` subcommand (``tpu_ba/cli.py``, which runs
-``bench.py``) is not ported.
+device. ``bench`` runs the benchmark harness (``tpu_ba_torch/bench/harness.py``,
+whose every flag ``python -m tpu_ba_torch.bench.harness`` takes) in this
+process.
 """
 
 from __future__ import annotations
@@ -102,6 +104,18 @@ def _add_posegraph(sub):
     p.add_argument("--noise", type=float, default=0.03)
     p.add_argument("--max-iters", type=int, default=30)
     _add_device(p)
+
+
+def _add_bench(sub):
+    # no defaults here: a flag not given is not passed, and the harness's own
+    # defaults hold
+    p = sub.add_parser("bench", help="run the benchmark harness",
+                       argument_default=argparse.SUPPRESS)
+    p.add_argument("--quick", action="store_true")
+    p.add_argument("--problem")
+    p.add_argument("--device", help="torch device; default: the CUDA card (fails without one), "
+                                    "cpu to run on the CPU")
+    p.add_argument("--detail-out", help="where the harness writes its detail JSON")
 
 
 def cmd_ba(args) -> int:
@@ -320,14 +334,27 @@ def cmd_posegraph(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from tpu_ba_torch.bench import harness
+
+    argv = []
+    for key, value in vars(args).items():
+        if key != "cmd":
+            flag = "--" + key.replace("_", "-")
+            argv += [flag] if value is True else [flag, value]
+    return harness.main(argv)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="tpu_ba_torch", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_ba(sub)
     _add_sfm(sub)
     _add_posegraph(sub)
+    _add_bench(sub)
     args = ap.parse_args(argv)
-    return {"ba": cmd_ba, "sfm": cmd_sfm, "posegraph": cmd_posegraph}[args.cmd](args)
+    return {"ba": cmd_ba, "sfm": cmd_sfm, "posegraph": cmd_posegraph,
+            "bench": cmd_bench}[args.cmd](args)
 
 
 if __name__ == "__main__":

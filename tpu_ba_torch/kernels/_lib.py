@@ -9,7 +9,9 @@ first use; a failed build raises with nvcc's output. Nothing here runs at
 import.
 
 Each wrapper counts its launches in ``launches`` — one per call that
-launches its kernel, none for a call that takes the plain version.
+launches its kernel, none for a call that takes the plain version — and the
+bytes each launch must move in ``bytes_moved`` (``count``; the counts of
+``tpu_ba_torch/bench/roofline.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # forms with Ul and the preconditioner given, K8)
 launches = {"segsum": 0, "linearize": 0, "cost": 0, "pcg_band": 0, "trackband": 0,
             "slotband": 0, "pairblocks": 0, "pcg_band_given": 0}
+# kernel name → bytes its launches must move since the last reset: each input
+# read once and each output written once a launch
+bytes_moved = dict.fromkeys(launches, 0)
 
 _lib = None
 
@@ -81,6 +86,13 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+        bytes_moved[k] = 0
+
+
+def count(name: str, n_bytes: int) -> None:
+    """One launch of kernel ``name``, which must move ``n_bytes``."""
+    launches[name] += 1
+    bytes_moved[name] += n_bytes
 
 
 def _sources() -> list[Path]:

@@ -21,6 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpu_ba_torch.bench import roofline
 from tpu_ba_torch.kernels import _lib
 from tpu_ba_torch.kernels.segsum import sorted_segment_sum_t_plain
 from tpu_ba_torch.residuals.robust import robust_rho, robust_weight
@@ -283,7 +284,7 @@ def fused_linearize_assemble(cameras, points, obs_2d, cam_idx, pt_idx, mask,
         float(robust_scale), _freeze_mask(freeze_cols), U.data_ptr(), gc.data_ptr(),
         obs_out.data_ptr(), sched.partial.data_ptr(), sched.ticket.data_ptr(),
         _lib.stream_ptr(cameras))
-    _lib.launches["linearize"] += 1
+    _lib.count("linearize", roofline.lin_counts(C, points.shape[0], O, sched)[0][0])
     _lib.check_status("linearize", status)
     return U, gc, obs_out[:27], obs_out[27:]
 
@@ -306,6 +307,6 @@ def fused_cost(cameras, points, obs_2d, cam_idx, pt_idx, mask, *,
         mask.data_ptr(), sched.pieces.data_ptr(), n_pieces, int(robust_kind),
         float(robust_scale), sched.cost_partial.data_ptr(), sched.ticket[C:].data_ptr(),
         out.data_ptr(), _lib.stream_ptr(cameras))
-    _lib.launches["cost"] += 1
+    _lib.count("cost", roofline.lin_counts(C, points.shape[0], O, sched)[1][0])
     _lib.check_status("cost", status)
     return out

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpu_ba_torch.bench import roofline
 from tpu_ba_torch.kernels import _lib
 from tpu_ba_torch.kernels.segsum import sorted_segment_sum_t_plain
 from tpu_ba_torch.solver.schur import inv3x3_rows
@@ -161,6 +162,6 @@ def fused_pair_blocks(packed, pair_seg, lam, n_out: int, sched: PairSchedule | N
                                  sched.fold_start.data_ptr(), n_split, partial.data_ptr(),
                                  out.data_ptr(), Np, n_out, sched.group_log2, float(diag_floor),
                                  float(diag_ceil), _lib.stream_ptr(packed))
-    _lib.launches["pairblocks"] += 1
+    _lib.count("pairblocks", roofline.pairblocks_bytes(Np, n_out))
     _lib.check_status("pairblocks", status)
     return out

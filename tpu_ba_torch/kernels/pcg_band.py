@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from tpu_ba_torch.bench import roofline
 from tpu_ba_torch.kernels import _lib
 from tpu_ba_torch.solver.pcg import pcg
 from tpu_ba_torch.solver.tridiag import factor_t, pcr_apply
@@ -267,7 +268,10 @@ def pcg_banded(blk, Ul, Minv, b, pairs, *, max_iters: int, tol, x0=None, tridiag
         ptr["lam"], tol.data_ptr(), int(max_iters), float(diag_floor), float(diag_ceil),
         work.data_ptr(), partial.data_ptr(), x.data_ptr(), info[0:].data_ptr(),
         info[1:].data_ptr(), _lib.stream_ptr(blk))
-    _lib.launches["pcg_band" if form == 0 else "pcg_band_given"] += 1
+    if form == 0:
+        _lib.count("pcg_band", roofline.pcg_band_bytes(pairs))
+    else:
+        _lib.count("pcg_band_given", roofline.pcg_band_given_bytes(pairs, levels))
     form_launches["resident" if cams else "streaming"] += 1
     _lib.check_status("pcg_band", status)
     return x, info[0], info[1] != 0

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from tpu_ba_torch.bench import roofline
 from tpu_ba_torch.kernels import _lib
 
 
@@ -136,7 +137,8 @@ def sorted_segment_sum_t(values_t, keys, n_out: int, seg_start=None, perm=None,
     status = fn(values_t.data_ptr(), None if perm is None else perm.data_ptr(),
                 seg_start.data_ptr(), out.data_ptr(), D, O, n_out, int(schedule),
                 _lib.stream_ptr(values_t))
-    _lib.launches["segsum"] += 1
+    _lib.count("segsum", roofline.segsum_counts(D, O, n_out, perm is not None,
+                                                values_t.element_size())[0])
     _lib.check_status("segsum", status)
     return out
 

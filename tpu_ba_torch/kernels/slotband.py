@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from tpu_ba_torch.bench import roofline
 from tpu_ba_torch.kernels import _lib
 from tpu_ba_torch.kernels.pairblocks import block_products_rows, damped_vinv_rows
 from tpu_ba_torch.kernels.segsum import sorted_segment_sum_t_plain
@@ -99,12 +100,13 @@ def slot_band_blocks(Ws, Vs, lam, layout, *, dc: int = 9, diag_floor: float, dia
     else:
         _lib.check_tensor("out", out, torch.float32, tuple(out.shape), dev)
     lib = _lib.load_library()
+    n_bytes = roofline.slotband_bytes(layout)
     for k, d in enumerate(layout.degrees):
         status = lib.tba_slot_blocks(
             Ws[k].data_ptr(), layout.slot_cam[k].data_ptr(), layout.slot_mask[k].data_ptr(),
             Vs[k].data_ptr(), layout.inc_start[k].data_ptr(), layout.inc[k].data_ptr(),
             layout.off_idx.data_ptr(), lam.data_ptr(), out.data_ptr(), d, layout.pt_pad[k],
             c_pad, out.shape[1], float(diag_floor), float(diag_ceil), _lib.stream_ptr(out))
-        _lib.launches["slotband"] += 1
+        _lib.count("slotband", n_bytes[k])
         _lib.check_status("slotband", status)
     return out

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from tpu_ba_torch.bench import roofline
 from tpu_ba_torch.kernels import _lib
 from tpu_ba_torch.kernels.pairblocks import block_products_rows, damped_vinv_rows
 from tpu_ba_torch.kernels.segsum import sorted_segment_sum_t_plain
@@ -82,7 +83,7 @@ def fused_track_blocks(Wt, Vt, lam, layout, *, dc: int = 9, diag_floor: float,
                                   layout.key_start.data_ptr(), lam.data_ptr(), grid.data_ptr(),
                                   dmax, pt, c_pad, grid.shape[1], float(diag_floor),
                                   float(diag_ceil), _lib.stream_ptr(Wt))
-    _lib.launches["trackband"] += 1
+    _lib.count("trackband", roofline.trackband_bytes(layout))
     _lib.check_status("trackband", status)
     if out is not None:
         return out
